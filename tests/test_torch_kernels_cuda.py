@@ -133,3 +133,154 @@ def test_wrappers_reject_bad_input(dev):
         qm.quant_gemm(x, q, s[:3], 64)  # too few scale rows
     with pytest.raises(ValueError):
         qm.quant_gemm(x, q, s, 64, mode="approx")
+
+
+# ---------------------------------------------------------------------------
+# The decode megakernel (csrc/fused_decode.cu) against its plain version.
+# x_final and the new K/V rows: max-abs error relative to max|plain| 1e-2.
+# The rounding points are the same on both sides; the kernel sums in another
+# fp32 order (k-lane shares, K splits), and a one-ulp difference before a
+# bf16 rounding, or before the int8 requantization of an activation, can
+# carry through the layers.
+
+
+def _fused_case(dev, family, kind, g, L=2, dim=256, hidden=512, heads=4,
+                kv_heads=2, seed=0):
+    from kuiperllama_tpu_torch.config import tiny_config
+    from kuiperllama_tpu_torch.fuse import fuse_params
+    from kuiperllama_tpu_torch.params import random_params, to_device
+    from kuiperllama_tpu_torch.quant import cast_scales, quantize_q80
+
+    cfg = tiny_config(family, dim=dim, hidden_dim=hidden, n_layers=L,
+                      n_heads=heads, n_kv_heads=kv_heads, vocab_size=64,
+                      seq_len=512)
+    dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+    params = to_device(random_params(cfg, seed=seed), device=dev, dtype=dtype)
+    if kind.startswith("int8"):
+        blocks = dict(params["blocks"])
+        for n in ("wq", "wk", "wv", "wo", "w1", "w2", "w3"):
+            blocks[n] = quantize_q80(blocks[n].float(), group_size=g)
+        params = dict(params, blocks=blocks)
+        if kind == "int8_bf16s":
+            params = cast_scales(params, torch.bfloat16)
+    return cfg, fuse_params(params)
+
+
+def _fused_run(cfg, params, dev, pos, A, S, cache_dtype, fn):
+    from kuiperllama_tpu_torch.models import decoder
+
+    gen = torch.Generator(device="cpu").manual_seed(pos)
+    L, KV = cfg.n_layers, cfg.kv_dim
+    full_k = torch.randn((L, S, KV), generator=gen).to(dev, cache_dtype)
+    full_v = torch.randn((L, S, KV), generator=gen).to(dev, cache_dtype)
+    kc, vc = full_k[:, :A], full_v[:, :A]  # a window view, as the Generator passes
+    # one rope table for every device: torch.sin on the card and on the CPU
+    # may differ in the last bit
+    sin, cos = (t.to(dev) for t in decoder.build_rope(cfg, "cpu"))
+    x0 = params["tok_emb"][torch.tensor([5], device=dev)]
+    p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    x, _, _ = fn(cfg, params, x0, kc, vc, p, sin, cos)
+    return x, full_k, full_v
+
+
+@pytest.mark.parametrize("family,kind,g", [
+    ("llama2", "int8", 32), ("llama2", "int8_bf16s", 64),
+    ("llama2", "int8", 8), ("qwen2", "int8_bf16s", 8),
+    ("llama2", "bf16", 0), ("qwen2", "bf16", 0), ("qwen2", "fp32", 0),
+])
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pos", [0, 37, 255])
+def test_fused_decode_matches_plain(dev, family, kind, g, cache, pos):
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+
+    cfg, params = _fused_case(dev, family, kind, g)
+    before = fd.fused_decode_step.launches
+    x, k, v = _fused_run(cfg, params, dev, pos, 256, 512, cache,
+                         fd.fused_decode_step)
+    torch.cuda.synchronize()
+    assert fd.fused_decode_step.launches == before + 1
+    xr, kr, vr = _fused_run(cfg, params, dev, pos, 256, 512, cache,
+                            fd.fused_decode_step_ref)
+    assert x.dtype == xr.dtype and x.shape == xr.shape
+    assert torch.isfinite(x.float()).all()
+    assert _rel(x, xr) <= 1e-2
+    for got, want in ((k, kr), (v, vr)):
+        assert torch.equal(got[:, :pos], want[:, :pos])
+        assert torch.equal(got[:, pos + 1:], want[:, pos + 1:])
+        assert _rel(got[:, pos], want[:, pos]) <= 1e-2
+    # deterministic: fixed-order reductions, no float atomics
+    x2, k2, _ = _fused_run(cfg, params, dev, pos, 256, 512, cache,
+                           fd.fused_decode_step)
+    assert torch.equal(x2, x) and torch.equal(k2, k)
+
+
+def _to_cpu(tree):
+    from kuiperllama_tpu_torch.quant import QuantTensor
+
+    if isinstance(tree, QuantTensor):
+        return QuantTensor(tree.q.cpu(), tree.s.cpu(), tree.group_size)
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+@pytest.mark.parametrize("g,L", [(64, 1), (64, 2), (256, 2)])
+def test_fused_decode_full_width(dev, g, L):
+    """TinyLlama-1.1B width; g = 64 takes int8 activations. At full width
+    the plain version run on the card (cuBLAS summation order) sits up to
+    3e-2 from the same plain version run on the CPU, so the kernel is held to
+    the CPU run, whose order the CPU tests tie to the JAX package's."""
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+
+    cfg, params = _fused_case(dev, "llama2", "int8_bf16s", g, L=L, dim=2048,
+                              hidden=5632, heads=32, kv_heads=4)
+    assert any(fd.gemv_int8_flags(params["blocks"], 2)) == (g == 64)
+    x, k, v = _fused_run(cfg, params, dev, 100, 256, 512, torch.bfloat16,
+                         fd.fused_decode_step)
+    cpu = torch.device("cpu")
+    xr, kr, vr = _fused_run(cfg, _to_cpu(params), cpu, 100, 256, 512,
+                            torch.bfloat16, fd.fused_decode_step_ref)
+    assert _rel(x.cpu(), xr) <= 1e-2
+    assert _rel(k[:, 100].cpu(), kr[:, 100]) <= 1e-2
+    assert _rel(v[:, 100].cpu(), vr[:, 100]) <= 1e-2
+
+
+def test_fused_decode_trace(dev):
+    """A traced launch computes the same step and stores rising timestamps,
+    one per phase of each layer; `phase_times` reads them."""
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+
+    cfg, params = _fused_case(dev, "llama2", "int8_bf16s", 64)
+    L = cfg.n_layers
+    trace = torch.zeros(2 + 5 * L, dtype=torch.int64, device=dev)
+    traced = lambda *a: fd.fused_decode_step(*a, trace=trace)
+    x, k, _ = _fused_run(cfg, params, dev, 37, 256, 512, torch.bfloat16, traced)
+    x0, k0, _ = _fused_run(cfg, params, dev, 37, 256, 512, torch.bfloat16,
+                           fd.fused_decode_step)
+    assert torch.equal(x, x0) and torch.equal(k, k0)
+    t = trace.cpu()
+    assert bool((t[1:] >= t[:-1]).all()) and t[-1] > t[0] > 0
+    times = fd.phase_times(trace, L)
+    assert set(times) == set(fd.PHASES) | {"final", "total"}
+    assert all(v >= 0 for v in times.values()) and times["total"] > 0
+
+
+def test_fused_decode_rejects_bad_input(dev):
+    from kuiperllama_tpu_torch.models import decoder
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+
+    cfg, params = _fused_case(dev, "llama2", "int8", 32)
+    sin, cos = decoder.build_rope(cfg, dev)
+    x0 = params["tok_emb"][torch.tensor([5], device=dev)]
+    kc = torch.zeros((cfg.n_layers, 256, cfg.kv_dim), device=dev)
+    p = torch.tensor([3], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # rows not contiguous
+        fd.fused_decode_step(cfg, params, x0, kc.transpose(1, 2), kc, p, sin, cos)
+    with pytest.raises(TypeError):  # pos of the wrong type
+        fd.fused_decode_step(cfg, params, x0, kc, kc.clone(), p.long(), sin, cos)
+    with pytest.raises(ValueError):  # a weight on the CPU
+        blocks = dict(params["blocks"], wo=params["blocks"]["wo"].__class__(
+            q=params["blocks"]["wo"].q.cpu(), s=params["blocks"]["wo"].s.cpu(),
+            group_size=32))
+        fd.fused_decode_step(cfg, dict(params, blocks=blocks), x0, kc,
+                             kc.clone(), p, sin, cos)
