@@ -33,6 +33,27 @@ last line:
      route; each with its decode profile, then the megakernel alone at the
      main path's shapes: held against its plain version (card and CPU),
      timed, and one launch traced for the time of each phase per layer.
+  8. paged kernel (run after phase 4): the paged flash-decode kernel against
+     its plain version on the card at B = 8 ragged rows (1 to 1024 tokens)
+     on 128-token pages of a shuffled page table, layer 1 of a stacked pool:
+     Llama-2-7B, Llama-3-8B, TinyLlama-1.1B and Qwen2.5-0.5B head geometries
+     with bf16 pools, TinyLlama's with fp32 pools; errors at PAGED_SEEDS
+     seeds, CUDA-event times of the kernel, the plain version and
+     scaled_dot_product_attention on K/V gathered ahead (the yardstick).
+  9. engine fixture (after phase 5): Engine, PagedEngine (8-token pages, a
+     pool small enough to preempt) and chunked PagedEngine on the tinychar
+     fixture, fp32: greedy tokens equal on the card and on the CPU and
+     across the three engines; paged attention launched n_layers times per
+     decode step.
+ 10. engine main paths (after phase 7): PagedEngine at 8 slots, cache
+     length 1024, 64-step chunks, 128-token pages (the bench.py --engine
+     defaults), 16 requests of 32 prompt and 128 new tokens submitted at
+     once: Llama-2-7B, then TinyLlama-1.1B with prefill_chunk 256 and a
+     768-token prompt on every 4th request. Tokens/s, TTFT, exact launch
+     counts, peak memory, and a profile of one decode chunk.
+ 11. server: InferenceServer and its HTTP front end on 127.0.0.1 over a
+     PagedEngine of the fixture: concurrent requests answer the CPU
+     engine's tokens, an invalid one gets a 400 and serving continues.
 Then one {"kernels": [...]} line, the nvidia-smi line of the card, and the
 last line {"ok": true, "device": {...}}.
 
@@ -79,6 +100,32 @@ FUSED_CASES = [("tinyllama-1.1b", "tinyllama-1.1b", True, 256),
                ("llama3.2-1b", "llama3.2-1b", True, 256),
                ("qwen2.5-0.5b", "qwen2.5-0.5b", False, 0),
                ("tinyllama-1.1b g64", "tinyllama-1.1b", True, 64)]
+
+# paged attention: (label, H, KH, hd) at B = 8 ragged rows on 128-token
+# pages of a shuffled page table, read at layer 1 of a stacked pool
+PAGED_CASES = [("llama2-7b", 32, 32, 128), ("llama3-8b", 32, 8, 128),
+               ("tinyllama-1.1b", 32, 4, 64), ("qwen2.5-0.5b", 14, 2, 64)]
+PAGED_LENS = [1, 127, 128, 129, 300, 512, 777, 1024]
+PAGED_PS = 128
+PAGED_SEEDS = 3
+# the normalised output acc / l relative to max|plain|, by pool dtype, and
+# m relative to max|m| (PERF.md records the readings they were set from)
+PAGED_TOL = {"bf16": 1e-3, "fp32": 1e-6}
+PAGED_M_TOL = 1e-6
+# engine main paths (the bench.py --engine defaults): slots, cache length,
+# decode chunk, page size, requests, prompt and new tokens
+ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_PS = 8, 64, 128
+ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW = 16, 32, 128
+PROFILE_STEPS = 16
+# the tinychar engines: (name, engine class, options)
+FIXTURE_ENGINES = [("dense", "Engine", {}),
+                   ("paged", "PagedEngine", dict(page_size=8, n_pages=13,
+                                                 reserve_growth=False)),
+                   ("paged_chunked", "PagedEngine", dict(page_size=8,
+                                                         prefill_chunk=16))]
+FIXTURE_PROMPTS = [[1, 20, 33, 45, 60, 7, 90], [5, 6], list(range(10, 40)),
+                   [3] * 12, [100, 2, 7], list(range(50, 70))]
+FIXTURE_NEW = 24
 
 # Llama-2-7B main-path projections: (name, K, N, launches per decode token)
 GEMV_SHAPES = [("wqkv", 4096, 12288, 32), ("wo", 4096, 4096, 32),
@@ -210,6 +257,10 @@ def phase_kernels(dev):
         row = check_kernel("quant_gemm", dev, PREFILL_M, K, N, 256, "fast",
                            SEED + 20 + i, name)
         gemm.append((row, 32))
+    # the engine's decode route: M = max_batch = 8 rows
+    for i, (name, K, N, _) in enumerate(GEMV_SHAPES[:4]):
+        check_kernel("quant_gemm", dev, ENGINE_SLOTS, K, N, 256, "fast",
+                     SEED + 60 + i, name)
     for M in (2, 255):
         check_kernel("quant_gemm", dev, M, 4096, 12288, 256, "fast", SEED + 30 + M)
     for M in (2, 32, 255):
@@ -331,7 +382,6 @@ def profile_decode(cfg, params, gen, prompt, dev, steps=16, fused=False,
     time per step against the step's wall time (the idle share is host
     time the card waits through) and the kernels that take the most."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from kuiperllama_tpu_torch.models import decoder
     from kuiperllama_tpu_torch.serving.generate import _stop_array, decode_chunk
@@ -345,9 +395,28 @@ def profile_decode(cfg, params, gen, prompt, dev, steps=16, fused=False,
              cache, torch.zeros(1, dtype=torch.bool, device=dev))
     run = lambda: decode_chunk(cfg, params, *state, None, _stop_array((), dev),
                                steps, active_len=256, rope=gen.rope,
-                               fused=fused)
+                               fused=fused, drop_past_end=False)
     run()
     torch.cuda.synchronize()
+    by_name, wall_ms = device_profile(run)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    row = dict(phase="decode_profile", model=model,
+               route="fused" if fused else "layered", steps=steps,
+               wall_ms_per_step_profiled=wall_ms / steps,
+               device_busy_ms_per_step=busy_ms / steps if by_name else "not measured",
+               device_idle_share=1 - busy_ms / wall_ms if by_name else "not measured",
+               kernels_per_step=sum(n for _, n in by_name.values()) / steps,
+               top_kernels=top_kernels(by_name, steps), card=CARD)
+    emit(row)
+    return row
+
+
+def device_profile(run):
+    """`run()` under torch.profiler: ({kernel name: (device ms, launches)},
+    wall ms to the end of its device work)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -358,20 +427,13 @@ def profile_decode(cfg, params, gen, prompt, dev, steps=16, fused=False,
         if e.device_type == torch.autograd.DeviceType.CUDA:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    busy_ms = sum(ms for ms, _ in by_name.values())
+    return by_name, wall_ms
+
+
+def top_kernels(by_name, steps):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    row = dict(phase="decode_profile", model=model,
-               route="fused" if fused else "layered", steps=steps,
-               wall_ms_per_step_profiled=wall_ms / steps,
-               device_busy_ms_per_step=busy_ms / steps if by_name else "not measured",
-               device_idle_share=1 - busy_ms / wall_ms if by_name else "not measured",
-               kernels_per_step=sum(n for _, n in by_name.values()) / steps,
-               top_kernels=[dict(name=k[:80], ms_per_step=ms / steps,
-                                 launches_per_step=n / steps)
-                            for k, (ms, n) in top],
-               card=CARD)
-    emit(row)
-    return row
+    return [dict(name=k[:80], ms_per_step=ms / steps, launches_per_step=n / steps)
+            for k, (ms, n) in top]
 
 
 def fused_model(dev, preset, quantize, g, layers=None, seed=SEED):
@@ -689,14 +751,371 @@ def phase_fused_main_path(dev, label, preset, quantize):
     return launches, step
 
 
+def paged_inputs(dev, H, KH, hd, dtype, seed, layers):
+    """q [B, H, hd] and stacked pools [layers, P, ps, KH*hd] drawn on the
+    card, a shuffled page table and its work list for PAGED_LENS."""
+    import numpy as np
+    import torch
+
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    B, ps = len(PAGED_LENS), PAGED_PS
+    max_pages = -(-max(PAGED_LENS) // ps)
+    P = B * max_pages + 1
+    kp = torch.randn((layers, P, ps, KH * hd), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((layers, P, ps, KH * hd), generator=gen, device=dev).to(dtype)
+    q = torch.randn((B, H, hd), generator=gen, device=dev).to(dtype)
+    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    pt = perm.reshape(B, max_pages).to(torch.int32).cpu().numpy()
+    sl = np.asarray(PAGED_LENS, np.int32)
+    work = [torch.from_numpy(a).to(dev) for a in pa.build_work_list(pt, sl, ps)]
+    return q, kp, vp, work, torch.from_numpy(sl).to(dev), pt
+
+
+def hold_paged(q, kp, vp, work, sl, layer):
+    """The kernel against its plain version on the card, both reading
+    `layer`: errors of the normalised output, m and l relative to
+    max|plain|, and the output's max-abs error."""
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+
+    args = (q, kp, vp, *work, sl)
+    acc, m, l = pa.paged_attention_flat(*args, page_size=PAGED_PS, layer_idx=layer)
+    ra, rm, rl = pa.paged_attention_flat_ref(*args, page_size=PAGED_PS,
+                                             layer_idx=layer)
+    out, ref = acc / l[..., None], ra / rl[..., None]
+    return dict(rel_err_out=rel_err(out, ref), rel_err_m=rel_err(m, rm),
+                rel_err_l=rel_err(l, rl),
+                max_abs_err=(out - ref).abs().max().item(),
+                finite=bool(out.isfinite().all()))
+
+
+def phase_paged_kernel(dev):
+    """The paged flash-decode kernel against its plain version on the card
+    at four geometries with bf16 pools and one with fp32 pools, errors at
+    PAGED_SEEDS seeds; CUDA-event times of the kernel, the plain version and
+    scaled_dot_product_attention on K/V gathered ahead into a dense
+    [B, H, S, hd] with a length mask (a yardstick the port never calls),
+    beside the least time: the valid tokens' K and V bytes read once."""
+    import torch
+    import torch.nn.functional as F
+
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+
+    cases = [(c, torch.bfloat16) for c in PAGED_CASES]
+    cases.append((PAGED_CASES[2], torch.float32))
+    rows = {}
+    B, ps, tokens = len(PAGED_LENS), PAGED_PS, sum(PAGED_LENS)
+    for i, ((label, H, KH, hd), dtype) in enumerate(cases):
+        dname = "bf16" if dtype == torch.bfloat16 else "fp32"
+        size = dtype.itemsize
+        kv_bytes = 2 * tokens * KH * hd * size
+        # enough stacked layers that timed launches rotate through more K/V
+        # than L2 holds; correctness reads layer 1
+        layers = 1 + max(1, math.ceil(2 * L2_BYTES / kv_bytes))
+        readings = []
+        for seed in range(PAGED_SEEDS):  # seed 0's inputs are the timed ones
+            inputs = paged_inputs(dev, H, KH, hd, dtype, SEED + 70 + 10 * i + seed,
+                                  2 if seed else layers)
+            readings.append(hold_paged(*inputs[:5], 1))
+            if not seed:
+                q, kp, vp, work, sl, pt = inputs
+            del inputs
+        ms = gpu_ms(lambda li: pa.paged_attention_flat(
+            q, kp, vp, *work, sl, page_size=ps, layer_idx=li), list(range(1, layers)))
+        plain_ms = gpu_ms(lambda li: pa.paged_attention_flat_ref(
+            q, kp, vp, *work, sl, page_size=ps, layer_idx=li), [1], n=5)
+        # the library yardstick: K/V gathered into [B, H, S, hd] beforehand
+        S = pt.shape[1] * ps
+        idx = torch.from_numpy(pt).long().to(dev)
+        dense = [p[1][idx].reshape(B, S, KH, hd).transpose(1, 2)
+                 .repeat_interleave(H // KH, dim=1).contiguous() for p in (kp, vp)]
+        mask = (torch.arange(S, device=dev)[None] < sl[:, None])[:, None, None]
+        q4 = q[:, :, None]
+        copies = max(1, math.ceil(2 * L2_BYTES / (2 * dense[0].nbytes)))
+        variants = [dense] + [[d.clone() for d in dense] for _ in range(copies - 1)]
+        library_ms = gpu_ms(lambda v: F.scaled_dot_product_attention(
+            q4, v[0], v[1], attn_mask=mask), variants)
+        nbytes = kv_bytes + q.nbytes + B * H * (hd + 2) * 4
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 4.0 * H * hd * tokens / PEAK_OPS_PER_S[dname] * 1e3
+        worst = {k: max(r[k] for r in readings)
+                 for k in ("rel_err_out", "rel_err_m", "rel_err_l", "max_abs_err")}
+        tol = PAGED_TOL[dname]
+        ok = (worst["rel_err_out"] <= tol and worst["rel_err_m"] <= PAGED_M_TOL
+              and all(r["finite"] for r in readings))
+        row = dict(phase="kernel", kernel="paged_attention", model=label,
+                   pool_dtype=dname, B=B, seq_lens=PAGED_LENS, page_size=ps, H=H,
+                   KH=KH, hd=hd, kv_mul=H // KH, layer=1, seeds=PAGED_SEEDS, **worst,
+                   rel_err_out_by_seed=[r["rel_err_out"] for r in readings],
+                   rel_err_m_by_seed=[r["rel_err_m"] for r in readings],
+                   tol=tol, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms, kv_bytes=kv_bytes,
+                   card=CARD)
+        emit(row)
+        rows[(label, dname)] = row
+        del q, kp, vp, dense, variants
+        if not ok:
+            raise AssertionError(f"paged_attention disagrees with its plain "
+                                 f"version: {row}")
+    return rows
+
+
+def run_fixture_engines(where, cfg, params):
+    """The tinychar requests through every FIXTURE_ENGINES engine on
+    `where`, fp32 params and cache: {name: (token lists, engine)}."""
+    import torch
+
+    from kuiperllama_tpu_torch.params import to_device
+    from kuiperllama_tpu_torch.serving import engine as E
+
+    placed = to_device(params, device=where, dtype=torch.float32)
+    out = {}
+    for name, cls, kw in FIXTURE_ENGINES:
+        eng = getattr(E, cls)(cfg, placed, max_batch=4, max_len=cfg.seq_len,
+                              chunk=8, cache_dtype=torch.float32, **kw)
+        reqs = [E.Request(prompt_ids=list(p), max_new_tokens=FIXTURE_NEW)
+                for p in FIXTURE_PROMPTS]
+        eng.run(reqs)
+        out[name] = ([r.out_ids for r in reqs], eng)
+    return out
+
+
+def phase_engine_fixture(dev):
+    """Engine, PagedEngine on 8-token pages with a pool small enough to
+    preempt, and chunked PagedEngine over the tinychar fixture: greedy
+    tokens equal on the card and on the CPU, and equal across the engines;
+    paged_attention launched n_layers times per decode step on the card."""
+    from kuiperllama_tpu_torch.checkpoint.binfmt import load_bin
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+
+    cfg, params = load_bin(os.path.join(HERE, FIXTURE))
+    cpu = run_fixture_engines("cpu", cfg, params)
+    pa.paged_attention_flat.launches = 0
+    card = run_fixture_engines(dev, cfg, params)
+    launches = pa.paged_attention_flat.launches
+    steps = sum(eng.n_decode_steps for name, (_, eng) in card.items()
+                if name != "dense")
+    tokens = {name: toks for name, (toks, _) in card.items()}
+    same = all(card[n][0] == cpu[n][0] for n in card)
+    across = all(t == tokens["dense"] for t in tokens.values())
+    preempted = (card["paged"][1].n_preemptions, cpu["paged"][1].n_preemptions)
+    full = all(len(t) == FIXTURE_NEW for t in tokens["dense"])
+    ok = (same and across and full and preempted[0] > 0 and preempted[0] == preempted[1]
+          and launches == cfg.n_layers * steps)
+    emit(dict(phase="engine_fixture", checkpoint=FIXTURE, dtype="fp32",
+              requests=len(FIXTURE_PROMPTS), new_tokens=FIXTURE_NEW,
+              engines=[n for n, _, _ in FIXTURE_ENGINES],
+              tokens_equal_card_cpu=same, tokens_equal_across_engines=across,
+              preemptions_card_cpu=list(preempted), paged_decode_steps=steps,
+              paged_attention_launches=launches,
+              paged_attention_launches_expected=cfg.n_layers * steps,
+              tokens_gpu=tokens["paged"], ok=ok, card=CARD))
+    if not ok:
+        raise AssertionError("tinychar engines differ between card and CPU, "
+                             "between engines, or in launch counts")
+    return cfg, params, dict(zip(map(tuple, FIXTURE_PROMPTS), cpu["paged"][0]))
+
+
+def profile_engine_chunk(eng, model, requests):
+    """One decode chunk of PROFILE_STEPS steps with every slot active:
+    its wall time unprofiled, then under torch.profiler (launches per step,
+    device busy and idle share)."""
+    import torch
+
+    eng.chunk = PROFILE_STEPS
+    for r in requests:
+        eng.submit(r)
+    eng.step()  # admission and a first chunk
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    by_name, wall_ms = device_profile(eng.step)
+    eng.run([])
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    row = dict(phase="engine_profile", model=model, slots=eng.max_batch,
+               steps=PROFILE_STEPS, decode_ms_per_step_unprofiled=step_ms,
+               wall_ms_per_step_profiled=wall_ms / PROFILE_STEPS,
+               device_busy_ms_per_step=(busy_ms / PROFILE_STEPS if by_name
+                                        else "not measured"),
+               device_idle_share_unprofiled=(1 - busy_ms / PROFILE_STEPS / step_ms
+                                             if by_name else "not measured"),
+               launches_per_step=sum(n for _, n in by_name.values()) / PROFILE_STEPS,
+               top_kernels=top_kernels(by_name, PROFILE_STEPS), card=CARD)
+    emit(row)
+    return row
+
+
+def phase_engine_main_path(dev, label, preset, prefill_chunk=0, long_prompt=0):
+    """PagedEngine at full width and depth (INT8 g 256, bf16 scales,
+    activations and pools, random weights from a seed): ENGINE_REQUESTS
+    requests of ENGINE_PROMPT tokens (every 4th of `long_prompt` tokens when
+    it is set) and ENGINE_NEW new tokens, all submitted at t0. Exact launch
+    counts: paged_attention n_layers per decode step; the GEMM 4 n_layers + 1
+    per decode step (M = 8) and one lm_head per prefill forward (>= 256 rows
+    take the dequantize-then-matmul route)."""
+    import torch
+
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+    from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
+    from kuiperllama_tpu_torch.serving.engine import PagedEngine, Request
+
+    cfg, params = fused_model(dev, preset, True, 256)
+    eng = PagedEngine(cfg, params, max_batch=ENGINE_SLOTS, max_len=CACHE_LEN,
+                      chunk=ENGINE_CHUNK, page_size=ENGINE_PS,
+                      cache_dtype=torch.bfloat16, prefill_chunk=prefill_chunk)
+    pool_bytes = eng.k_pages.nbytes + eng.v_pages.nbytes
+    vocab = cfg.vocab_size
+
+    def prompt(i, n):
+        return [(7 * i + j) % (vocab - 1) + 1 for j in range(n)]
+
+    eng.run([Request(prompt_ids=prompt(i, 16), max_new_tokens=4) for i in range(2)])
+    torch.cuda.synchronize()
+    reqs = [Request(prompt_ids=prompt(i, long_prompt if long_prompt and i % 4 == 3
+                                      else ENGINE_PROMPT),
+                    max_new_tokens=ENGINE_NEW) for i in range(ENGINE_REQUESTS)]
+    eng.n_decode_steps = eng.n_prefill_calls = 0
+    eng.prefill_wall_s = 0.0
+    qm.quant_gemv.launches = qm.quant_gemm.launches = 0
+    pa.paged_attention_flat.launches = fd.fused_decode_step.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run([])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"paged_attention": pa.paged_attention_flat.launches,
+                "quant_gemm": qm.quant_gemm.launches,
+                "quant_gemv": qm.quant_gemv.launches,
+                "fused_decode": fd.fused_decode_step.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps, prefills = eng.n_decode_steps, eng.n_prefill_calls
+    L = cfg.n_layers
+    expect = {"paged_attention": L * steps,
+              "quant_gemm": steps * (4 * L + 1) + prefills,
+              "quant_gemv": 0, "fused_decode": 0}
+    generated = sum(len(r.out_ids) for r in reqs)
+    ttft = sorted(r.ttft_s for r in reqs)
+    pct = lambda v, p: v[min(len(v) - 1, int(len(v) * p / 100))]
+    in_vocab = all(0 <= t < vocab for r in reqs for t in r.out_ids)
+    ok = (len(done) == ENGINE_REQUESTS and generated == ENGINE_REQUESTS * ENGINE_NEW
+          and in_vocab and launches == expect)
+    row = dict(phase="engine_main_path", model=label, quant="int8", group_size=256,
+               dtype="bf16", slots=ENGINE_SLOTS, max_len=CACHE_LEN, chunk=ENGINE_CHUNK,
+               page_size=ENGINE_PS, prefill_chunk=prefill_chunk,
+               requests=ENGINE_REQUESTS, prompt_len=ENGINE_PROMPT,
+               long_prompt_every_4th=long_prompt or None, new_tokens=ENGINE_NEW,
+               generated_tokens=generated, wall_s=wall_s, tokens_per_s=generated / wall_s,
+               ttft_s_min=ttft[0], ttft_s_p50=pct(ttft, 50), ttft_s_p99=pct(ttft, 99),
+               decode_steps=steps, prefill_calls=prefills,
+               single_shot_prefill_s=eng.prefill_wall_s,
+               wall_ms_per_decode_step=(wall_s - eng.prefill_wall_s) / steps * 1e3,
+               preemptions=eng.n_preemptions, peak_memory_bytes=peak,
+               pool_bytes=pool_bytes, launches=launches, launches_expected=expect,
+               ok=ok, card=CARD)
+    emit(row)
+    if not ok:
+        raise AssertionError(f"{label} engine main path failed its checks")
+    prof = profile_engine_chunk(eng, label, [
+        Request(prompt_ids=prompt(100 + i, ENGINE_PROMPT), max_new_tokens=3 * PROFILE_STEPS + 8)
+        for i in range(ENGINE_SLOTS)])
+    del eng, params
+    return launches, row, prof
+
+
+def phase_server(dev, cfg, params, want):
+    """InferenceServer and its HTTP front end on 127.0.0.1 over a PagedEngine
+    of the fixture on the card: concurrent /generate requests answer the CPU
+    engine's tokens, /healthz and /metrics answer, an invalid request gets a
+    400 and the next valid one is served."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from kuiperllama_tpu_torch.params import to_device
+    from kuiperllama_tpu_torch.serving.engine import PagedEngine
+    from kuiperllama_tpu_torch.serving.server import InferenceServer, make_http_server
+
+    eng = PagedEngine(cfg, to_device(params, device=dev, dtype=torch.float32),
+                      max_batch=4, max_len=cfg.seq_len, chunk=8,
+                      cache_dtype=torch.float32, page_size=8)
+    srv = InferenceServer(eng)
+    srv.start()
+    httpd = make_http_server(srv, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serving.start()
+
+    def post(body):
+        req = urllib.request.Request(f"{base}/generate", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    try:
+        results = [None] * len(FIXTURE_PROMPTS)
+
+        def client(i):
+            results[i] = post({"prompt_ids": FIXTURE_PROMPTS[i],
+                               "max_new_tokens": FIXTURE_NEW})
+
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(FIXTURE_PROMPTS))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=300)
+        answers_ok = all(r is not None and r[0] == 200
+                         and r[1]["ids"] == want[tuple(p)]
+                         for r, p in zip(results, FIXTURE_PROMPTS))
+        health = get("/healthz")
+        bad_code, bad = post({"prompt_ids": [], "max_new_tokens": 4})
+        good_code, good = post({"prompt_ids": FIXTURE_PROMPTS[0],
+                                "max_new_tokens": FIXTURE_NEW})
+        metrics = get("/metrics")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop()
+    ok = (answers_ok and health.get("ok") is True and bad_code == 400
+          and good_code == 200 and good["ids"] == want[tuple(FIXTURE_PROMPTS[0])]
+          and metrics.get("served") == len(FIXTURE_PROMPTS) + 1)
+    emit(dict(phase="server", concurrent_requests=len(FIXTURE_PROMPTS),
+              answers_equal_cpu_engine=answers_ok, healthz=health,
+              invalid_request_status=bad_code, invalid_request_error=bad.get("error"),
+              next_valid_status=good_code, metrics=metrics, ok=ok, card=CARD))
+    if not ok:
+        raise AssertionError("the HTTP server failed its checks")
+
+
 def _sum(rows, key):
     return sum(r[key] * n for r, n in rows)
 
 
-def kernels_line(gemv, gemm, fused_rows, fused_step, launches_by_path):
+def kernels_line(gemv, gemm, fused_rows, fused_step, paged_rows, launches_by_path):
     """One entry per kernel. `launches` is the count on the kernel's main
     path (Llama-2-7B for the GEMV and GEMM, TinyLlama-1.1B for the
-    megakernel); `launches_by_path` has every path's count."""
+    megakernel, the Llama-2-7B engine for paged attention);
+    `launches_by_path` has every path's count."""
+    from kuiperllama_tpu_torch.config import preset_config
+
     main_7b = launches_by_path["llama2-7b"]
 
     def by_path(name):
@@ -728,6 +1147,21 @@ def kernels_line(gemv, gemm, fused_rows, fused_step, launches_by_path):
         per="one TinyLlama-1.1B decode step: 22 layers, INT8 g 256, bf16 "
             "scales and cache, pos 100 in a 256-slot window",
         launches_by_path=by_path("fused_decode"), card=CARD)
+    # per engine decode step of Llama-2-7B: one launch per layer at the
+    # kernel phase's 7B shapes
+    p7 = paged_rows[("llama2-7b", "bf16")]
+    n7 = preset_config("llama2-7b").n_layers
+    paged = dict(
+        name="paged_attention", route="cuda",
+        source="kuiperllama_tpu_torch/csrc/paged_attention.cu",
+        replaces="kuiperllama_tpu/ops/pallas/paged_attention.py:71",
+        launches=launches_by_path["engine llama2-7b"]["paged_attention"],
+        max_abs_err=max(r["max_abs_err"] for r in paged_rows.values()),
+        ms=n7 * p7["ms"], plain_ms=n7 * p7["plain_ms"], bound_ms=n7 * p7["bound_ms"],
+        bound_by=p7["bound_by"], library_ms=n7 * p7["library_ms"],
+        per="one Llama-2-7B B = 8 engine decode step: 32 launches, bf16 pools, "
+            f"seq_lens {PAGED_LENS}, 128-token pages",
+        launches_by_path=by_path("paged_attention"), card=CARD)
     return {"kernels": [
         entry("quant_gemv", gemv, "kuiperllama_tpu/ops/pallas/quant_matmul.py:202",
               "one Llama-2-7B decode token: 32 x (wqkv, wo, w13, w2) + lm_head, "
@@ -736,6 +1170,7 @@ def kernels_line(gemv, gemm, fused_rows, fused_step, launches_by_path):
               "one Llama-2-7B prefill of 32 tokens: 32 x (wqkv, wo, w13, w2), "
               "fast, g 256, bf16"),
         fused,
+        paged,
     ]}
 
 
@@ -748,6 +1183,7 @@ def main() -> int:
         return 2
     from kuiperllama_tpu_torch.ops.kernels import build
     from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
     from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -760,20 +1196,27 @@ def main() -> int:
               nvidia_smi=CARD, torch=torch.__version__, cuda=torch.version.cuda))
 
     t0 = time.perf_counter()
-    built = build.build([qm.GEMV_SOURCE, qm.GEMM_SOURCE, fd.SOURCE])
+    built = build.build([qm.GEMV_SOURCE, qm.GEMM_SOURCE, fd.SOURCE, pa.SOURCE])
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               per_source_s=built, flags=" ".join(build.NVCC_FLAGS)))
 
     gemv, gemm = phase_kernels(dev)
     fused_rows = phase_fused_kernel(dev)
+    paged_rows = phase_paged_kernel(dev)
     phase_fixture(dev)
+    fixture_cfg, fixture_params, fixture_tokens = phase_engine_fixture(dev)
     launches = {"llama2-7b": phase_main_path(dev)}
     launches["tinyllama-1.1b"], fused_step = phase_fused_main_path(
         dev, "tinyllama-1.1b", "tinyllama-1.1b", True)
     launches["qwen2.5-0.5b"], qwen_step = phase_fused_main_path(
         dev, "qwen2.5-0.5b", "qwen2.5-0.5b", False)
+    launches["engine llama2-7b"], _, _ = phase_engine_main_path(
+        dev, "llama2-7b", "llama2-7b")
+    launches["engine tinyllama-1.1b"], _, _ = phase_engine_main_path(
+        dev, "tinyllama-1.1b", "tinyllama-1.1b", prefill_chunk=256, long_prompt=768)
+    phase_server(dev, fixture_cfg, fixture_params, fixture_tokens)
     emit(kernels_line(gemv, gemm, fused_rows + [fused_step, qwen_step],
-                      fused_step, launches))
+                      fused_step, paged_rows, launches))
     print(CARD, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -7,10 +7,16 @@ Qwen2.5), a port of kuiperllama_tpu/models/decoder.py.
   * fp32 softmax/norm accumulation, bf16 (configurable) activations;
   * head counts come from the weight shapes, not the config;
   * the dense KV cache [L, B, S, KH, hd] is updated IN PLACE (the JAX
-    package returns a new cache; here that would copy gigabytes per step).
-    A position must be < S: the JAX package drops writes at positions >= S,
-    which only its serving engine uses, and on the card an out-of-range
-    index fails the cache write.
+    package returns a new cache; here that would copy gigabytes per step);
+  * positions >= S are sentinels whose cache writes are DROPPED, as the JAX
+    package's scatter with mode="drop" drops them: the serving engine's
+    admit prefill passes S for the rows of live slots, and a done row that
+    decodes past the cache writes nothing. Their rope row is clamped to the
+    table's last, as JAX clamps the gather. On the card an out-of-range
+    index would fail, so a prefill writes only the kept (row, token) pairs,
+    and a decode step (one write per row) stores a dropped row's slot S - 1
+    back unchanged, which needs no host sync. A caller whose positions all
+    lie below S (the Generator) passes drop_past_end=False and skips both.
 """
 
 from __future__ import annotations
@@ -41,12 +47,61 @@ def build_rope(cfg: ModelConfig, device="cuda"):
                       scaling=cfg.rope_scaling, device=device)
 
 
+def _heads(cfg, blocks):
+    """(H, KH) from the weight shapes."""
+    hd = cfg.head_dim
+    if "wqkv" in blocks:
+        H = blocks["wo"].shape[-2] // hd
+        return H, (blocks["wqkv"].shape[-1] - H * hd) // (2 * hd)
+    return blocks["wq"].shape[-1] // hd, blocks["wk"].shape[-1] // hd
+
+
+def _qkv(cfg, blocks, li, x, s, c, B, T, mode="fast"):
+    """Normed q, k, v of layer li for x [B, T, dim], roped; (q, k, v, H, KH).
+    Shared with the paged decoder (models/paged.py)."""
+    hd = cfg.head_dim
+    H, KH = _heads(cfg, blocks)
+    h = rmsnorm(x, blocks["attn_norm"][li], cfg.norm_eps)
+    if "wqkv" in blocks:  # fused projection (fuse.py)
+        qkv = linear_layered(h, blocks["wqkv"], li, blocks.get("bqkv"), mode=mode)
+        q = qkv[..., : H * hd]
+        k = qkv[..., H * hd: (H + KH) * hd]
+        v = qkv[..., (H + KH) * hd:]
+    else:
+        q = linear_layered(h, blocks["wq"], li, blocks.get("bq"), mode=mode)
+        k = linear_layered(h, blocks["wk"], li, blocks.get("bk"), mode=mode)
+        v = linear_layered(h, blocks["wv"], li, blocks.get("bv"), mode=mode)
+    q = apply_rope(q.reshape(B, T, H, hd), s, c, cfg.rope_style)
+    k = apply_rope(k.reshape(B, T, KH, hd), s, c, cfg.rope_style)
+    return q, k, v.reshape(B, T, KH, hd), H, KH
+
+
+def _mlp_residual(cfg, blocks, li, x, attn_out, B, T, H, hd, mode="fast"):
+    """Attention output projection and SwiGLU MLP with residuals."""
+    x = x + linear_layered(attn_out.reshape(B, T, H * hd), blocks["wo"], li,
+                           mode=mode)
+    h = rmsnorm(x, blocks["ffn_norm"][li], cfg.norm_eps)
+    if "w13" in blocks:  # fused gate|up projection (fuse.py)
+        hidden = blocks["w2"].shape[-2]
+        g13 = linear_layered(h, blocks["w13"], li, mode=mode)
+        gate, up = g13[..., :hidden], g13[..., hidden:]
+    else:
+        gate = linear_layered(h, blocks["w1"], li, mode=mode)
+        up = linear_layered(h, blocks["w3"], li, mode=mode)
+    gf = gate.float()
+    act = (gf * torch.sigmoid(gf)).to(x.dtype) * up
+    return x + linear_layered(act, blocks["w2"], li, mode=mode)
+
+
 def forward(cfg: ModelConfig, params, tokens, positions, kv_cache,
-            kv_len_mask=None, last_pos=None, *, rope=None, mode: str = "fast"):
+            kv_len_mask=None, last_pos=None, *, rope=None, mode: str = "fast",
+            drop_past_end: bool = True):
     """Forward over [B, T] tokens.
 
     tokens:    int [B, T]
-    positions: int [B, T] absolute positions (cache slot == position, < S).
+    positions: int [B, T] absolute positions (cache slot == position).
+               A position >= S drops its cache write; with
+               drop_past_end=False every position must be < S.
     kv_cache:  dict(k, v) [L, B, S, KH, hd]; written in place.
     kv_len_mask: optional [B, S] bool of valid slots for ragged batches.
     last_pos:  optional int [B] — compute logits only at this token index
@@ -62,55 +117,38 @@ def forward(cfg: ModelConfig, params, tokens, positions, kv_cache,
     sin, cos = rope if rope is not None else build_rope(cfg, x.device)
     s, c = gather_rope(sin, cos, positions)  # [B, T, 1, hd/2]
     b_idx = torch.arange(B, device=x.device)[:, None]
+    S = kv_cache["k"].shape[2]
     slots = positions.long()
+    if drop_past_end and T == 1:
+        keep = (slots < S)[..., None, None]
+        slots = slots.clamp(max=S - 1)
+    elif drop_past_end:  # the kept (row, token) pairs; finding them syncs
+        rows, toks = torch.nonzero(slots < S, as_tuple=True)
+        slots = slots[rows, toks]
 
     blocks = params["blocks"]
-    fused = "wqkv" in blocks
-    if fused:
-        H = blocks["wo"].shape[-2] // hd
-        KH = (blocks["wqkv"].shape[-1] - H * hd) // (2 * hd)
-    else:
-        H = blocks["wq"].shape[-1] // hd
-        KH = blocks["wk"].shape[-1] // hd
-    hidden = blocks["w2"].shape[-2]
     k_all, v_all = kv_cache["k"], kv_cache["v"]
 
     for li in range(cfg.n_layers):
-        h = rmsnorm(x, blocks["attn_norm"][li], cfg.norm_eps)
-        if fused:
-            qkv = linear_layered(h, blocks["wqkv"], li, blocks.get("bqkv"),
-                                 mode=mode)
-            q = qkv[..., : H * hd]
-            k = qkv[..., H * hd: (H + KH) * hd]
-            v = qkv[..., (H + KH) * hd:]
-        else:
-            q = linear_layered(h, blocks["wq"], li, blocks.get("bq"), mode=mode)
-            k = linear_layered(h, blocks["wk"], li, blocks.get("bk"), mode=mode)
-            v = linear_layered(h, blocks["wv"], li, blocks.get("bv"), mode=mode)
-        q = apply_rope(q.reshape(B, T, H, hd), s, c, cfg.rope_style)
-        k = apply_rope(k.reshape(B, T, KH, hd), s, c, cfg.rope_style)
-        v = v.reshape(B, T, KH, hd)
-
+        q, k, v, H, KH = _qkv(cfg, blocks, li, x, s, c, B, T, mode)
         k_cache, v_cache = k_all[li], v_all[li]  # views of layer li
-        k_cache[b_idx, slots] = k.to(k_cache.dtype)
-        v_cache[b_idx, slots] = v.to(v_cache.dtype)
-        attn = attention_dense(q, k_cache, v_cache, positions, kv_len_mask)
-        x = x + linear_layered(attn.reshape(B, T, H * hd), blocks["wo"], li,
-                               mode=mode)
-
-        h = rmsnorm(x, blocks["ffn_norm"][li], cfg.norm_eps)
-        if "w13" in blocks:
-            g13 = linear_layered(h, blocks["w13"], li, mode=mode)
-            gate, up = g13[..., :hidden], g13[..., hidden:]
+        if not drop_past_end:
+            k_cache[b_idx, slots] = k.to(k_cache.dtype)
+            v_cache[b_idx, slots] = v.to(v_cache.dtype)
+        elif T == 1:
+            k_cache[b_idx, slots] = torch.where(keep, k.to(k_cache.dtype),
+                                                k_cache[b_idx, slots])
+            v_cache[b_idx, slots] = torch.where(keep, v.to(v_cache.dtype),
+                                                v_cache[b_idx, slots])
         else:
-            gate = linear_layered(h, blocks["w1"], li, mode=mode)
-            up = linear_layered(h, blocks["w3"], li, mode=mode)
-        gf = gate.float()
-        act = (gf * torch.sigmoid(gf)).to(x.dtype) * up
-        x = x + linear_layered(act, blocks["w2"], li, mode=mode)
+            k_cache[rows, slots] = k[rows, toks].to(k_cache.dtype)
+            v_cache[rows, slots] = v[rows, toks].to(v_cache.dtype)
+        attn = attention_dense(q, k_cache, v_cache, positions, kv_len_mask)
+        x = _mlp_residual(cfg, blocks, li, x, attn, B, T, H, hd, mode)
 
     if last_pos is not None:
-        x = x[torch.arange(B, device=x.device), last_pos.long()][:, None]
+        x = x[torch.arange(B, device=x.device),
+              last_pos.long().clamp(0, T - 1)][:, None]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = linear(x, params["lm_head"], mode=mode).float()
     return logits, kv_cache
@@ -135,13 +173,16 @@ def prefill(cfg: ModelConfig, params, tokens, kv_cache, prompt_lens=None, *,
     kv_len_mask = slot[None, :] < prompt_lens[:, None]
     logits, kv_cache = forward(cfg, params, tokens, positions, kv_cache,
                                kv_len_mask, last_pos=prompt_lens - 1,
-                               rope=rope, mode=mode)
+                               rope=rope, mode=mode, drop_past_end=False)
     return logits[:, 0], kv_cache
 
 
 def decode_step(cfg: ModelConfig, params, token, pos, kv_cache,
-                kv_len_mask=None, *, rope=None, mode: str = "fast"):
-    """One batched decode step. token: int [B], pos: int [B] (each < S)."""
+                kv_len_mask=None, *, rope=None, mode: str = "fast",
+                drop_past_end: bool = True):
+    """One batched decode step. token: int [B], pos: int [B] (a position
+    >= S drops its cache write, see `forward`)."""
     logits, kv_cache = forward(cfg, params, token[:, None], pos[:, None],
-                               kv_cache, kv_len_mask, rope=rope, mode=mode)
+                               kv_cache, kv_len_mask, rope=rope, mode=mode,
+                               drop_past_end=drop_past_end)
     return logits[:, 0], kv_cache

@@ -1,0 +1,251 @@
+"""Decoder forward over the paged KV cache, a port of
+kuiperllama_tpu/models/paged.py (single device).
+
+  * prefill_paged: a batch of prompts from position 0, causal attention over
+    each prompt's own K/V, which is then written into its pages;
+  * prefill_chunk_paged: one C-token chunk of a chunked prefill, attending
+    to the row's earlier context gathered from its pages and, causally, to
+    the chunk itself;
+  * decode_chunk_paged(_packed): `steps` decode steps of the whole batch,
+    each appending the new token's K/V to its page and running the paged
+    flash-decode kernel (ops/kernels/paged_attention.py) once per layer.
+
+The pools k_pages, v_pages [L, P, ps, KH*hd] are updated IN PLACE and
+returned (the JAX package donates them to each call instead). Out-of-range
+pages (the 2**30 padding sentinel) are redirected to the garbage page 0.
+The scheduler (serving/engine.py) owns the page tables and pre-extends each
+row's pages to cover a whole decode chunk; slots not yet written are masked
+by seq_lens inside the kernel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from ..kvcache import sink_pages
+from ..ops.attention import attention_dense
+from ..ops.kernels.paged_attention import paged_attention_flat
+from ..ops.linear import linear
+from ..ops.rmsnorm import rmsnorm
+from ..ops.rope import gather_rope
+from ..ops.sampling import sample_token
+from .decoder import _mlp_residual, _qkv, build_rope
+
+
+def _write_chunk_pages(li, kp_all, vp_all, k2, v2, chunk_pages, ps):
+    """Write [B, T, kv_dim] K/V of layer li into pages, in place.
+
+    chunk_pages [B, n_chunks] (long, already redirected into range) is the
+    physical page of each ps-wide chunk of the T axis; every chunk starts at
+    in-page offset 0. A partial tail chunk (T not a page multiple) fills the
+    first T % ps slots of its page. Several chunks redirected to page 0
+    write it in an undefined order, which is harmless for the sink."""
+    B, T, kv_dim = k2.shape
+    n_chunks = chunk_pages.shape[1]
+    n_full = min(T // ps, n_chunks)
+    tail = T - n_full * ps if n_full < n_chunks else 0
+    if n_full:
+        pages = chunk_pages[:, :n_full]
+        kp_all[li][pages] = k2[:, : n_full * ps].reshape(B, n_full, ps, kv_dim)
+        vp_all[li][pages] = v2[:, : n_full * ps].reshape(B, n_full, ps, kv_dim)
+    if tail:
+        page = chunk_pages[:, n_full][:, None]  # [B, 1]
+        offs = torch.arange(tail, device=k2.device)[None]  # [1, tail]
+        kp_all[li][page, offs] = k2[:, n_full * ps: n_full * ps + tail]
+        vp_all[li][page, offs] = v2[:, n_full * ps: n_full * ps + tail]
+
+
+def _final_logits(cfg, params, x_last, mode):
+    x_last = rmsnorm(x_last, params["final_norm"], cfg.norm_eps)
+    return linear(x_last, params["lm_head"], mode=mode).float()
+
+
+@torch.no_grad()
+def prefill_paged(cfg: ModelConfig, params, tokens, prompt_lens, k_pages,
+                  v_pages, token_pages, token_offs=None, *, rope=None,
+                  mode: str = "fast"):
+    """Batched prefill of admitted prompts from position 0.
+
+    tokens [B, T]; prompt_lens [B]; token_pages [B, T] maps each prompt
+    position to its physical page (2**30 for padding rows and slots: those
+    writes go to the garbage page 0). token_offs is accepted for the JAX
+    signature: positions start at 0, so a position's in-page offset is
+    position % ps. In-chunk slots past a prompt's end are written into the
+    row's own page at future decode offsets; decode overwrites them before
+    they become visible, and the kernel masks them by seq_lens meanwhile.
+    Returns (last_logits [B, vocab] fp32, k_pages, v_pages)."""
+    B, T = tokens.shape
+    hd = cfg.head_dim
+    dev = tokens.device
+    x = params["tok_emb"][tokens.long()]
+    sin, cos = rope if rope is not None else build_rope(cfg, dev)
+    positions = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    s, c = gather_rope(sin, cos, positions)
+    kv_mask = (torch.arange(T, device=dev)[None] < prompt_lens[:, None])
+    ps, P = k_pages.shape[2], k_pages.shape[1]
+    chunk_pages = sink_pages(token_pages[:, ::ps].long(), P)
+    blocks = params["blocks"]
+    for li in range(cfg.n_layers):
+        q, k, v, H, KH = _qkv(cfg, blocks, li, x, s, c, B, T, mode)
+        attn = attention_dense(q, k, v, positions, kv_mask)
+        _write_chunk_pages(li, k_pages, v_pages,
+                           k.reshape(B, T, KH * hd).to(k_pages.dtype),
+                           v.reshape(B, T, KH * hd).to(v_pages.dtype),
+                           chunk_pages, ps)
+        x = _mlp_residual(cfg, blocks, li, x, attn, B, T, H, hd, mode)
+    last = (prompt_lens.long() - 1).clamp(0, T - 1)
+    x_last = x[torch.arange(B, device=dev), last]
+    return _final_logits(cfg, params, x_last, mode), k_pages, v_pages
+
+
+@torch.no_grad()
+def prefill_chunk_paged(cfg: ModelConfig, params, tokens_chunk, chunk_start,
+                        row_lens, k_pages, v_pages, chunk_pages, hist_pages, *,
+                        rope=None, mode: str = "fast"):
+    """One C-token chunk of a chunked prefill (C a multiple of the page size).
+
+    tokens_chunk [B, C]; chunk_start: int, absolute position of chunk token 0
+    (the same for every row of the admission wave); row_lens [B] prompt
+    lengths (rows that ended before chunk_start write to the garbage page
+    through sentinel chunk_pages, and their logits are not selected);
+    chunk_pages [B, C/ps] physical page per page slot of the chunk (2**30 for
+    padding); hist_pages [B, n_hist] pages of the earlier context (pad
+    entries read page 0 and are masked by chunk_start and row_lens).
+
+    Returns (logits [B, vocab] at each row's last prompt token when it falls
+    in this chunk, else at a clamped slot; ends_here [B] bool; k_pages;
+    v_pages)."""
+    B, C = tokens_chunk.shape
+    hd = cfg.head_dim
+    dev = tokens_chunk.device
+    L, P, ps = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
+    if C % ps:
+        raise ValueError(f"prefill_chunk_paged: chunk {C} is not a multiple "
+                         f"of the page size {ps}")
+    chunk_start = int(chunk_start)
+    n_hist = hist_pages.shape[1]
+    S_hist = n_hist * ps
+    row_lens = row_lens.long()
+
+    x = params["tok_emb"][tokens_chunk.long()]
+    sin, cos = rope if rope is not None else build_rope(cfg, dev)
+    abs_pos = chunk_start + torch.arange(C, device=dev)
+    s, c = gather_rope(sin, cos, abs_pos.expand(B, C))
+    cp = sink_pages(chunk_pages.long(), P)
+    hp = sink_pages(hist_pages.long(), P)
+
+    # attention layout [history (S_hist) | chunk (C)]: history slots precede
+    # every chunk query, so the causal rule on layout positions is right
+    q_layout_pos = (S_hist + torch.arange(C, device=dev)).expand(B, C)
+    hist_valid = (torch.arange(S_hist, device=dev)[None]
+                  < row_lens.clamp(max=chunk_start)[:, None])
+    chunk_valid = abs_pos[None] < row_lens[:, None]
+    kv_mask = torch.cat([hist_valid, chunk_valid], dim=1)
+
+    blocks = params["blocks"]
+    for li in range(cfg.n_layers):
+        q, k, v, H, KH = _qkv(cfg, blocks, li, x, s, c, B, C, mode)
+        _write_chunk_pages(li, k_pages, v_pages,
+                           k.reshape(B, C, KH * hd).to(k_pages.dtype),
+                           v.reshape(B, C, KH * hd).to(v_pages.dtype), cp, ps)
+        if S_hist:
+            k_hist = k_pages[li][hp].reshape(B, S_hist, KH, hd).to(k.dtype)
+            v_hist = v_pages[li][hp].reshape(B, S_hist, KH, hd).to(v.dtype)
+            attn = attention_dense(q, torch.cat([k_hist, k], dim=1),
+                                   torch.cat([v_hist, v], dim=1),
+                                   q_layout_pos, kv_mask)
+        else:
+            attn = attention_dense(q, k, v, q_layout_pos, kv_mask)
+        x = _mlp_residual(cfg, blocks, li, x, attn, B, C, H, hd, mode)
+    last_rel = (row_lens - 1 - chunk_start).clamp(0, C - 1)
+    x_last = x[torch.arange(B, device=dev), last_rel]
+    logits = _final_logits(cfg, params, x_last, mode)
+    ends_here = (row_lens - 1 >= chunk_start) & (row_lens - 1 < chunk_start + C)
+    return logits, ends_here, k_pages, v_pages
+
+
+@torch.no_grad()
+def decode_chunk_paged(cfg: ModelConfig, params, token, pos, k_pages, v_pages,
+                       done, generator, stop_ids, page_table_dev, flat_b,
+                       flat_page, flat_tok0, n_items, steps: int,
+                       page_size: int = 128, temperature: float = 0.0,
+                       top_k: int = 0, top_p: float = 1.0, *, rope=None,
+                       mode: str = "fast"):
+    """Run `steps` decode iterations over the paged cache.
+
+    token/pos/done: [B] current state on the device. page_table_dev
+    [B, max_pages] int locates the write page of each new token; a row that
+    decodes up to max_len inside a chunk reaches pos // ps == max_pages,
+    whose index is clamped to the last page as JAX clamps the gather. The
+    work list must cover each row's pages up to pos + steps (the scheduler
+    pre-extends them); unwritten slots are masked by seq_lens = pos + 1.
+    Finished rows (done) keep their token and position. `generator` is the
+    torch.Generator of the sampling draws.
+
+    Returns (tokens int32 [B, steps], token, pos, k_pages, v_pages, done)."""
+    B = token.shape[0]
+    hd = cfg.head_dim
+    dev = token.device
+    sin, cos = rope if rope is not None else build_rope(cfg, dev)
+    b_idx = torch.arange(B, device=dev)
+    blocks = params["blocks"]
+    pt = page_table_dev.long()
+    max_pages = pt.shape[1]
+    toks = torch.empty((B, steps), dtype=torch.int32, device=dev)
+    for i in range(steps):
+        x = params["tok_emb"][token.long()][:, None]  # [B, 1, dim]
+        s, c = gather_rope(sin, cos, pos[:, None])
+        seq_lens = (pos + 1).to(torch.int32)
+        pos_l = pos.long()
+        write_page = sink_pages(pt[b_idx, (pos_l // page_size).clamp(max=max_pages - 1)],
+                                k_pages.shape[1])
+        write_off = pos_l % page_size
+        for li in range(cfg.n_layers):
+            q, k, v, H, KH = _qkv(cfg, blocks, li, x, s, c, B, 1, mode)
+            # retired slots' page-table rows are 0, the garbage page: several
+            # such rows write it in an undefined order, which is harmless
+            k_pages[li, write_page, write_off] = k.reshape(B, KH * hd).to(k_pages.dtype)
+            v_pages[li, write_page, write_off] = v.reshape(B, KH * hd).to(v_pages.dtype)
+            acc, m, l = paged_attention_flat(
+                q[:, 0].contiguous(), k_pages, v_pages, flat_b, flat_page,
+                flat_tok0, n_items, seq_lens, page_size=page_size, layer_idx=li)
+            attn = (acc / torch.clamp(l[..., None], min=1e-30)).to(x.dtype)
+            x = _mlp_residual(cfg, blocks, li, x, attn[:, None], B, 1, H, hd, mode)
+        logits = _final_logits(cfg, params, x[:, 0], mode)
+        nxt = sample_token(logits, generator, temperature, top_k, top_p)
+        nxt = torch.where(done, token, nxt)
+        new_done = done | (nxt[:, None] == stop_ids[None, :]).any(dim=-1)
+        pos = torch.where(done, pos, pos + 1)
+        done, token = new_done, nxt
+        toks[:, i] = nxt
+    return toks, token, pos, k_pages, v_pages, done
+
+
+def pack_chunk_meta(pt, fb, fp, ft, ni) -> np.ndarray:
+    """The per-chunk scheduler arrays (page table and flat work list) packed
+    into ONE int32 vector, so a decode chunk costs one host-to-device copy."""
+    return np.concatenate([
+        np.asarray(pt, np.int32).ravel(), np.asarray(fb, np.int32),
+        np.asarray(fp, np.int32), np.asarray(ft, np.int32),
+        np.asarray([int(np.asarray(ni).reshape(-1)[0])], np.int32)])
+
+
+def decode_chunk_paged_packed(cfg: ModelConfig, params, token, pos, k_pages,
+                              v_pages, done, generator, stop_ids, packed,
+                              shapes, steps: int, page_size: int = 128,
+                              temperature: float = 0.0, top_k: int = 0,
+                              top_p: float = 1.0, *, rope=None,
+                              mode: str = "fast"):
+    """decode_chunk_paged with the scheduler metadata as ONE packed int32
+    device vector (pack_chunk_meta); shapes = (B, max_pages, M). The pieces
+    are views of it."""
+    B, MP, M = shapes
+    o = B * MP
+    return decode_chunk_paged(
+        cfg, params, token, pos, k_pages, v_pages, done, generator, stop_ids,
+        packed[:o].view(B, MP), packed[o: o + M], packed[o + M: o + 2 * M],
+        packed[o + 2 * M: o + 3 * M], packed[o + 3 * M: o + 3 * M + 1],
+        steps=steps, page_size=page_size, temperature=temperature,
+        top_k=top_k, top_p=top_p, rope=rope, mode=mode)

@@ -71,6 +71,7 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
 
 def gather_rope(sin: torch.Tensor, cos: torch.Tensor, positions: torch.Tensor):
     """Per-token sin/cos. positions: [B, T] int ->
-    ([B, T, 1, hd/2], [B, T, 1, hd/2]) ready to broadcast over heads."""
-    positions = positions.long()
+    ([B, T, 1, hd/2], [B, T, 1, hd/2]) ready to broadcast over heads.
+    A position past the table takes its last row, as JAX clamps a gather."""
+    positions = positions.long().clamp(max=sin.shape[0] - 1)
     return sin[positions][..., None, :], cos[positions][..., None, :]

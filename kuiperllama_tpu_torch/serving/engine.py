@@ -1,0 +1,656 @@
+"""Continuous-batching serving engine, a port of
+kuiperllama_tpu/serving/engine.py (single device).
+
+The engine keeps a slot-per-request batch over a persistent KV cache:
+requests are admitted into free slots, all active slots decode together in
+chunks, and finished rows retire and free their slot for the next queued
+request. Every request admitted at a step boundary prefills in ONE batched
+forward.
+
+Two cache backends:
+  Engine      dense cache [L, max_batch, max_len, KH, hd];
+  PagedEngine paged pool and the paged flash-decode kernel (memory scales
+              with real tokens), with chunked admission, decode-growth
+              reservation and preemption under pool pressure.
+
+Host/device split: the device owns tokens, positions, done flags and the KV
+cache (written in place across chunks); the host owns the request queue and
+the page allocator, and reads each decode chunk's output in ONE fetch.
+Sampling draws come from one torch.Generator on the engine's device (the
+JAX engine splits a jax.random key); admission samples greedily, as the
+JAX engine does.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from ..models import decoder
+from ..ops.sampling import sample_greedy
+from .generate import _bucket, _bucket_len, _stop_array, decode_chunk
+
+
+@dataclass
+class Request:
+    prompt_ids: List[int]
+    max_new_tokens: int = 128
+    request_id: int = field(default_factory=itertools.count().__next__)
+    # filled by the engine:
+    out_ids: List[int] = field(default_factory=list)
+    submit_time: float = 0.0
+    first_token_time: float = 0.0
+    finish_time: float = 0.0
+    preempted: int = 0  # times evicted mid-decode under pool pressure
+
+    @property
+    def ttft_s(self) -> float:
+        return self.first_token_time - self.submit_time
+
+    @property
+    def finished(self) -> bool:
+        return self.finish_time > 0
+
+
+# sentinel slot for padding rows of a batched admit
+_PAD_SLOT = 2 ** 30
+
+
+@torch.no_grad()
+def _admit_prefill(cfg: ModelConfig, params, tokens, n_tokens, admit_mask,
+                   kv_cache, stop_ids, rope=None):
+    """Batched prefill of admitted prompts DIRECTLY into their dense-cache
+    slots, in place.
+
+    tokens [maxB, T] laid out BY SLOT (row s = slot s's prompt); n_tokens
+    [maxB]; admit_mask [maxB] bool, True for freshly admitted slots. Rows of
+    slots that are not being admitted (live decode slots, free slots) carry
+    padding and must not touch the cache: their positions are the sentinel
+    S, whose writes decoder.forward drops. Returns (first [maxB], done
+    [maxB]), indexed by slot."""
+    B, T = tokens.shape
+    S = kv_cache["k"].shape[2]
+    dev = tokens.device
+    positions = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    positions = torch.where(admit_mask[:, None], positions,
+                            torch.full_like(positions, S))
+    kv_len_mask = torch.arange(S, device=dev)[None] < n_tokens[:, None]
+    logits, _ = decoder.forward(cfg, params, tokens, positions, kv_cache,
+                                kv_len_mask, last_pos=n_tokens - 1, rope=rope)
+    token = sample_greedy(logits[:, 0])
+    done = (token[:, None] == stop_ids[None, :]).any(dim=-1)
+    return token, done
+
+
+class Engine:
+    """Continuous batching over `max_batch` dense cache slots, on the device
+    that holds `params`."""
+
+    def __init__(self, cfg: ModelConfig, params, tokenizer=None,
+                 max_batch: int = 8, max_len: Optional[int] = None,
+                 cache_dtype=torch.bfloat16, chunk: int = 32,
+                 temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+                 stop_ids=frozenset(), seed: int = 0):
+        self.cfg = cfg
+        self.params = params
+        self.tokenizer = tokenizer
+        self.device = params["tok_emb"].device
+        self.max_batch = max_batch
+        self.max_len = max_len or cfg.seq_len
+        self.cache_dtype = cache_dtype
+        self.chunk = chunk
+        self.temperature, self.top_k, self.top_p = temperature, top_k, top_p
+        stop = set(stop_ids)
+        if tokenizer is not None:
+            stop |= set(tokenizer.stop_ids)
+        self.stop_ids = {int(s) for s in stop if int(s) >= 0}
+        self._stop_arr = _stop_array(self.stop_ids, self.device)
+        self.rope = decoder.build_rope(cfg, self.device)
+
+        dev = self.device
+        self.token = torch.zeros((max_batch,), dtype=torch.int32, device=dev)
+        self.pos = torch.zeros((max_batch,), dtype=torch.int32, device=dev)
+        self.done = torch.ones((max_batch,), dtype=torch.bool, device=dev)
+        self.generator = torch.Generator(device=dev)
+        self.generator.manual_seed(seed)
+
+        self.queue: List[Request] = []
+        self.active: Dict[int, Request] = {}  # slot -> request
+        self._slot_budget: Dict[int, int] = {}
+        self._admit_order: Dict[int, int] = {}  # slot -> admission seqno
+        self._admit_seq = itertools.count()
+        self.n_preemptions = 0
+        # prefill accounting: wall time of the single-shot batched admit
+        # prefills (with the first-token fetch), real prompt tokens and the
+        # padded [Bpad, T] grid the forward computes
+        self.prefill_wall_s = 0.0
+        self.prefill_tokens = 0
+        self.prefill_padded_tokens = 0
+        # prefill forwards (a chunked wave counts each chunk) and decode
+        # steps run, for per-step times and exact kernel launch counts
+        self.n_prefill_calls = 0
+        self.n_decode_steps = 0
+        # requests retired DURING a preemption (cache capacity exhausted);
+        # drained into _collect's finished list
+        self._preempt_retired: List[Request] = []
+        # host mirror of self.pos: pos, done and the chunk's tokens come back
+        # in ONE fetch (_meta/_collect), and pos at admission is host-known
+        self._pos_np = np.zeros((max_batch,), np.int64)
+        self._init_cache()
+
+    # ---- cache backend hooks (overridden by PagedEngine)
+
+    def _init_cache(self):
+        self.cache = decoder.init_kv_cache(
+            self.cfg, batch=self.max_batch, max_len=self.max_len,
+            dtype=self.cache_dtype, device=self.device)
+
+    def _can_admit(self, req: Request) -> bool:
+        return True
+
+    def _reserve(self, slot: int, req: Request):
+        pass
+
+    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _prefill_batch(self, slots: np.ndarray, toks: np.ndarray,
+                       lens: np.ndarray):
+        """One forward for the whole admit batch. Returns (first tokens,
+        done flags) as device tensors in ADMIT order (callers index [:Ba])."""
+        # admit-ordered rows go to slot order for the in-place prefill (row s
+        # of the forward writes cache slot s)
+        Bm, T = self.max_batch, toks.shape[1]
+        toks_slot = np.zeros((Bm, T), np.int32)
+        lens_slot = np.ones((Bm,), np.int32)
+        admit = np.zeros((Bm,), bool)
+        back = np.zeros((len(slots),), np.int64)  # admit row -> slot row
+        for i, s in enumerate(slots):
+            if s == _PAD_SLOT:
+                continue
+            toks_slot[s], lens_slot[s], admit[s] = toks[i], lens[i], True
+            back[i] = s
+        first, done = _admit_prefill(
+            self.cfg, self.params, self._to_dev(toks_slot),
+            self._to_dev(lens_slot), self._to_dev(admit), self.cache,
+            self._stop_arr, rope=self.rope)
+        idx = self._to_dev(back)
+        return first[idx], done[idx]
+
+    def _run_chunk(self):
+        live = max((int(self._pos_np[s]) for s in self.active), default=0)
+        active = min(_bucket_len(live + self.chunk + 1), self.max_len)
+        self.n_decode_steps += self.chunk
+        toks, self.token, self.pos, self.cache, self.done = decode_chunk(
+            self.cfg, self.params, self.token, self.pos, self.cache,
+            self.done, self.generator, self._stop_arr, steps=self.chunk,
+            temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
+            active_len=active, rope=self.rope)
+        return self._meta(toks)
+
+    def _meta(self, toks):
+        """[B, steps + 2] int32 device tensor: [tokens | pos | done], one
+        host fetch per chunk instead of three."""
+        return torch.cat([toks.to(torch.int32), self.pos[:, None].to(torch.int32),
+                          self.done[:, None].to(torch.int32)], dim=1)
+
+    def _retire_slot(self, slot: int):
+        pass
+
+    def _slot_capacity(self, slot: int) -> int:
+        return self.max_len
+
+    # ---- public API
+
+    def submit(self, req: Request):
+        # keep an earlier stamp (the HTTP server stamps at enqueue, so TTFT
+        # includes its queue wait); a first submission stamps here
+        if not req.submit_time:
+            req.submit_time = time.perf_counter()
+        self.queue.append(req)
+
+    def submit_prompt(self, text: str, **kw) -> Request:
+        if self.tokenizer is None:
+            raise ValueError("submit_prompt needs a tokenizer")
+        req = Request(prompt_ids=self.tokenizer.encode(text), **kw)
+        self.submit(req)
+        return req
+
+    @property
+    def n_active(self) -> int:
+        return len(self.active)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue or self.active)
+
+    def run(self, requests: Sequence[Request] = ()) -> List[Request]:
+        """Drain: submit `requests`, step until everything finishes."""
+        for r in requests:
+            self.submit(r)
+        finished = []
+        while self.has_work:
+            finished.extend(self.step())
+        return finished
+
+    # ---- engine internals
+
+    def step(self) -> List[Request]:
+        """Admit as many queued requests as fit, run one decode chunk,
+        retire finished rows. Returns newly finished requests."""
+        self._admit()
+        if not self.active:
+            return []
+        return self._collect(self._run_chunk().cpu().numpy())
+
+    def _free_slots(self) -> List[int]:
+        return [s for s in range(self.max_batch) if s not in self.active]
+
+    @staticmethod
+    def _effective_ids(req: Request) -> List[int]:
+        """The ids a (re-)admission prefills: the prompt plus whatever was
+        generated before a preemption, so a resumed request continues
+        exactly where it left off."""
+        return req.prompt_ids + req.out_ids
+
+    def _pop_admits(self):
+        """Move as many queued requests as fit into reserved slots."""
+        free = self._free_slots()
+        admits = []
+        while self.queue and free and self._can_admit(self.queue[0]):
+            req = self.queue.pop(0)
+            slot = free.pop(0)
+            n = len(self._effective_ids(req))
+            if not 1 <= n < self.max_len:
+                raise ValueError(f"request {req.request_id}: {n} prompt tokens, "
+                                 f"max_len {self.max_len}")
+            self._reserve(slot, req)
+            admits.append((slot, req))
+        return admits
+
+    def _admit(self):
+        admits = self._pop_admits()
+        if admits:
+            self._admit_now(admits)
+
+    def _admit_rows(self, admits, T):
+        """Admit-ordered [max_batch, T] tokens, lengths and slots (padding
+        rows carry _PAD_SLOT)."""
+        Bpad = self.max_batch
+        toks = np.zeros((Bpad, T), np.int32)
+        lens = np.ones((Bpad,), np.int32)
+        slots = np.full((Bpad,), _PAD_SLOT, np.int32)
+        for i, (slot, req) in enumerate(admits):
+            ids = self._effective_ids(req)
+            toks[i, :len(ids)] = ids
+            lens[i] = len(ids)
+            slots[i] = slot
+        return toks, lens, slots
+
+    def _admit_now(self, admits):
+        # one batched prefill for every admitted request; rows always pad to
+        # max_batch and T to a bucket, so the INT8 routes repeat the JAX
+        # engine's
+        T = min(_bucket(max(len(self._effective_ids(r)) for _, r in admits)),
+                self.max_len)
+        toks, lens, slots = self._admit_rows(admits, T)
+        t0 = time.perf_counter()
+        first, done = self._prefill_batch(slots, toks, lens)
+        self.n_prefill_calls += 1
+        self._activate(admits, slots, lens, first, done)  # syncs
+        self.prefill_wall_s += time.perf_counter() - t0
+        self.prefill_tokens += int(sum(len(self._effective_ids(r))
+                                       for _, r in admits))
+        self.prefill_padded_tokens += self.max_batch * T
+
+    def _activate(self, admits, slots, lens, first, done):
+        """Post-prefill bookkeeping: install first tokens and positions,
+        record TTFT, hand the slots to the decode loop."""
+        Ba = len(admits)
+        first_np = first.cpu().numpy()  # syncs the prefill
+        done_np = done.cpu().numpy()
+        now = time.perf_counter()
+        real = self._to_dev(slots[:Ba].astype(np.int64))
+        self.token[real] = first[:Ba].to(torch.int32)
+        self.pos[real] = self._to_dev(lens[:Ba])
+        self.done[real] = done[:Ba]
+        self._pos_np[slots[:Ba]] = lens[:Ba]  # host mirror
+        for i, (slot, req) in enumerate(admits):
+            if not req.first_token_time:  # TTFT survives preemptions
+                req.first_token_time = now
+            self.active[slot] = req
+            self._admit_order[slot] = next(self._admit_seq)
+            prior = len(req.out_ids)  # > 0 only when a preemption resumes
+            first_id = int(first_np[i])
+            if first_id in self.stop_ids or bool(done_np[i]):
+                req.finish_time = now
+                self._slot_budget[slot] = 0
+            else:
+                req.out_ids.append(first_id)
+                self._slot_budget[slot] = req.max_new_tokens - prior - 1
+
+    def _collect(self, meta: np.ndarray) -> List[Request]:
+        finished = []
+        if self._preempt_retired:
+            finished.extend(self._preempt_retired)
+            self._preempt_retired.clear()
+        toks = meta[:, :-2]
+        pos_np = meta[:, -2]
+        done_np = meta[:, -1].astype(bool)
+        self._pos_np = np.array(pos_np, np.int64)
+        for slot, req in list(self.active.items()):
+            if req.finished:  # finished during admission
+                self._retire_slot(slot)
+                finished.append(req)
+                del self.active[slot]
+                continue
+            budget = self._slot_budget[slot]
+            taken = 0
+            hit_stop = False
+            for t in toks[slot]:
+                if taken >= budget:
+                    break
+                t = int(t)
+                if t in self.stop_ids:
+                    hit_stop = True
+                    break
+                req.out_ids.append(t)
+                taken += 1
+            self._slot_budget[slot] = budget - taken
+            out_of_budget = self._slot_budget[slot] <= 0
+            capacity = int(pos_np[slot]) >= self._slot_capacity(slot) - 1
+            if hit_stop or out_of_budget or capacity or bool(done_np[slot]):
+                req.finish_time = time.perf_counter()
+                self._retire_slot(slot)
+                finished.append(req)
+                del self.active[slot]
+                self.done[slot] = True  # the slot is free for the next admit
+        return finished
+
+
+class PagedEngine(Engine):
+    """Continuous batching over a paged KV cache and the paged flash-decode
+    kernel.
+
+    prefill_chunk=C (a page-size multiple, such as 256) CHUNKS long-prompt
+    admissions: prompts longer than C prefill C tokens per engine step,
+    between shortened (admit_chunk-step) decode chunks, so active slots keep
+    generating during an admission wave. Prompts <= C take the single-shot
+    path; prefill_chunk=0 always does.
+
+    reserve_growth=True admits a request only when the pool can hold its
+    whole lifetime (prompt + max_new_tokens) beside every active slot's
+    remaining growth; with False only prompt pages are budgeted and a
+    decode chunk that runs out of pages preempts the youngest slot.
+
+    mesh= and seqpar= (tensor- and sequence-parallel serving) belong to the
+    parallelism slice, which the port does not have yet."""
+
+    def __init__(self, cfg: ModelConfig, params, tokenizer=None,
+                 n_pages: Optional[int] = None, page_size: int = 128,
+                 mesh=None, prefill_chunk: int = 0, admit_chunk: int = 32,
+                 reserve_growth: bool = True, seqpar: bool = False, **kw):
+        from ..kvcache import PageAllocator
+
+        if mesh is not None or seqpar:
+            raise NotImplementedError(
+                "PagedEngine: mesh= and seqpar= need the parallelism slice of "
+                "the port (ROADMAP queue 1 item 10), which is not ported yet")
+        if prefill_chunk % page_size:
+            raise ValueError(f"prefill_chunk {prefill_chunk} is not a multiple "
+                             f"of the page size {page_size}")
+        self.page_size = page_size
+        self.reserve_growth = reserve_growth
+        self._reserved_caps: Dict[int, int] = {}
+        self.prefill_chunk = prefill_chunk
+        self.admit_chunk = admit_chunk
+        self._wave: Optional[dict] = None
+        max_batch = kw.get("max_batch", 8)
+        max_len = kw.get("max_len") or cfg.seq_len
+        if n_pages is None:
+            n_pages = max_batch * (-(-max_len // page_size)) + 1
+        self._n_pages = n_pages
+        super().__init__(cfg, params, tokenizer, **kw)
+        self.allocator = PageAllocator(
+            n_pages=n_pages, page_size=page_size, max_seqs=self.max_batch,
+            max_len=self.max_len)
+
+    # ---- chunked admission (prefill/decode overlap)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue or self.active or self._wave)
+
+    def step(self) -> List[Request]:
+        if self.prefill_chunk:
+            if self._wave is None:
+                self._start_wave()
+            if self._wave is not None:
+                self._advance_wave()
+        else:
+            self._admit()
+        if not self.active:
+            if self._wave is None and self.queue and not self._can_admit(
+                    self.queue[0]):
+                # nothing running, nothing mid-prefill, the whole pool free:
+                # a head request that still does not fit never will
+                req = self.queue[0]
+                raise RuntimeError(
+                    f"request {req.request_id} needs more KV pages than the "
+                    f"pool has ({len(self._effective_ids(req))} prompt + "
+                    f"{req.max_new_tokens} new tokens vs "
+                    f"{self.allocator.n_free_pages} free pages of "
+                    f"{self.page_size} tokens)")
+            return []
+        return self._collect(self._run_chunk().cpu().numpy())
+
+    def _start_wave(self):
+        admits = self._pop_admits()
+        if not admits:
+            return
+        C = self.prefill_chunk
+        maxlen = max(len(self._effective_ids(r)) for _, r in admits)
+        if maxlen <= C:
+            # short prompts: the single-shot batched prefill is one step anyway
+            self._admit_now(admits)
+            return
+        T = -(-maxlen // C) * C
+        toks, lens, slots = self._admit_rows(admits, T)
+        self._wave = dict(admits=admits, toks=toks, lens=lens, slots=slots,
+                          T=T, progress=0, last_logits=None)
+
+    def _advance_wave(self):
+        from ..models.paged import prefill_chunk_paged
+
+        w = self._wave
+        C, ps, Bpad = self.prefill_chunk, self.page_size, self.max_batch
+        start = w["progress"]
+        pps = C // ps
+        chunk_pos = start + np.arange(pps) * ps
+        cp = np.full((Bpad, pps), 2 ** 30, np.int32)
+        # history pages bucketed to a power of two, as the JAX engine does
+        # (there to bound compiles); pad entries read page 0 and are masked
+        n_need = start // ps
+        n_hist = 1
+        while n_hist < n_need:
+            n_hist *= 2
+        n_hist = n_hist if n_need else 0
+        hp = np.zeros((Bpad, n_hist), np.int32)
+        pt = self.allocator.page_table
+        for i, slot in enumerate(w["slots"]):
+            if slot == _PAD_SLOT:
+                continue
+            valid = chunk_pos < w["lens"][i]
+            cp[i, valid] = pt[slot, (chunk_pos // ps)[valid]]
+            hp[i, :n_need] = pt[slot, :n_need]
+        logits, ends, self.k_pages, self.v_pages = prefill_chunk_paged(
+            self.cfg, self.params, self._to_dev(w["toks"][:, start:start + C]),
+            start, self._to_dev(w["lens"]), self.k_pages, self.v_pages,
+            self._to_dev(cp), self._to_dev(hp), rope=self.rope)
+        self.n_prefill_calls += 1
+        if w["last_logits"] is None:
+            w["last_logits"] = logits
+        else:
+            w["last_logits"] = torch.where(ends[:, None], logits, w["last_logits"])
+        w["progress"] = start + C
+        if w["progress"] >= w["T"]:
+            self._wave = None
+            first = sample_greedy(w["last_logits"])
+            done = (first[:, None] == self._stop_arr[None, :]).any(dim=-1)
+            self._activate(w["admits"], w["slots"], w["lens"], first, done)
+
+    def _init_cache(self):
+        from ..kvcache import init_paged_cache
+
+        cache = init_paged_cache(self.cfg, n_pages=self._n_pages,
+                                 page_size=self.page_size,
+                                 dtype=self.cache_dtype, device=self.device)
+        self.k_pages, self.v_pages = cache.k_pages, cache.v_pages
+
+    def _future_growth_pages(self) -> int:
+        """Pages the occupied slots will still claim to reach their token
+        budgets: active slots, and slots reserved for an admission that is
+        not active yet (mid-wave, or earlier in the same batch)."""
+        alloc = self.allocator
+        need = 0
+        for s in set(self.active) | set(self._reserved_caps):
+            if s in self.active:
+                cap = min(int(alloc.seq_lens[s]) + self._slot_budget.get(s, 0)
+                          + 1, self.max_len)
+            else:
+                cap = self._reserved_caps[s]
+            need += max(0, alloc.pages_needed(cap) - len(alloc.owned.get(s, ())))
+        return need
+
+    def _can_admit(self, req: Request) -> bool:
+        """Admit only if the pool holds this request's whole lifetime on top
+        of every active slot's remaining growth (reserve_growth), or at
+        least its prompt (over-commit; preemption is the backstop)."""
+        eff = len(self._effective_ids(req))
+        if not self.reserve_growth:
+            return (self.allocator.n_free_pages
+                    >= self.allocator.pages_needed(eff))
+        remaining = max(req.max_new_tokens - len(req.out_ids), 0)
+        cap = min(eff + remaining + 1, self.max_len)
+        free_after_growth = (self.allocator.n_free_pages
+                             - self._future_growth_pages())
+        return free_after_growth >= self.allocator.pages_needed(cap)
+
+    def _reserve(self, slot: int, req: Request):
+        eff = len(self._effective_ids(req))
+        if not self.allocator.alloc_seq(slot, eff):
+            raise RuntimeError("page allocator out of pages on admission "
+                               "(_can_admit said it fits)")
+        if self.reserve_growth:
+            remaining = max(req.max_new_tokens - len(req.out_ids), 0)
+            self._reserved_caps[slot] = min(eff + remaining + 1, self.max_len)
+
+    def _prefill_batch(self, slots: np.ndarray, toks: np.ndarray,
+                       lens: np.ndarray):
+        from ..models.paged import prefill_paged
+
+        Ba, T = toks.shape
+        ps = self.page_size
+        # 2**30 sentinel for padding rows and positions: their writes go to
+        # the garbage page 0
+        arange_t = np.arange(T)
+        token_pages = np.full((Ba, T), 2 ** 30, np.int32)
+        for i in range(Ba):
+            if slots[i] == _PAD_SLOT:
+                continue
+            n = int(lens[i])
+            token_pages[i, :n] = self.allocator.page_table[slots[i], arange_t[:n] // ps]
+        last, self.k_pages, self.v_pages = prefill_paged(
+            self.cfg, self.params, self._to_dev(toks), self._to_dev(lens),
+            self.k_pages, self.v_pages, self._to_dev(token_pages),
+            rope=self.rope)
+        token = sample_greedy(last)
+        done = (token[:, None] == self._stop_arr[None, :]).any(dim=-1)
+        return token, done
+
+    def _run_chunk(self):
+        from ..models.paged import decode_chunk_paged_packed, pack_chunk_meta
+        from ..ops.kernels.paged_attention import build_work_list
+
+        # shrink the decode chunk while an admission could begin soon (a wave
+        # mid-prefill, or queued work with a free slot or one about to free),
+        # so queued requests wait at most admit_chunk steps
+        steps = self.chunk
+        if self.prefill_chunk and (
+            self._wave is not None
+            or (self.queue and (
+                self._free_slots()
+                or (self.active
+                    and min(self._slot_budget[s] for s in self.active)
+                    <= self.chunk)))):
+            steps = min(self.chunk, self.admit_chunk)
+        # pre-extend every active row's pages to cover the chunk; under pool
+        # pressure PREEMPT the youngest slot (free its pages, re-queue the
+        # request for a resume-prefill): the oldest keep decoding
+        pos_np = self._pos_np
+        for slot in sorted(self.active, key=self._admit_order.__getitem__):
+            if slot not in self.active:  # preempted by an earlier iteration
+                continue
+            target = min(int(pos_np[slot]) + steps + 1, self.max_len)
+            while not self.allocator.extend_seq(slot, target):
+                victim = max((s for s in self.active if s != slot),
+                             key=self._admit_order.__getitem__, default=None)
+                if victim is None or (self._admit_order[victim]
+                                      < self._admit_order[slot]):
+                    victim = slot  # this slot is the youngest: evict it
+                self._preempt(victim)
+                if victim == slot:
+                    break
+        if not self.active:
+            return self._meta(torch.zeros((self.max_batch, 0), dtype=torch.int32,
+                                          device=self.device))
+        # inactive slots (mid-wave admissions) leave the work list and write
+        # the garbage page, so they cannot touch the wave's fresh pages
+        pt = self.allocator.page_table
+        sl = self.allocator.seq_lens
+        if len(self.active) < self.max_batch:
+            mask = np.zeros((self.max_batch,), bool)
+            mask[list(self.active)] = True
+            pt = np.where(mask[:, None], pt, 0)
+            sl = np.where(mask, sl, 0)
+        fb, fp, ft, n_items = build_work_list(pt, sl, self.page_size)
+        packed = self._to_dev(pack_chunk_meta(pt, fb, fp, ft, n_items))
+        self.n_decode_steps += steps
+        (toks, self.token, self.pos, self.k_pages, self.v_pages,
+         self.done) = decode_chunk_paged_packed(
+            self.cfg, self.params, self.token, self.pos, self.k_pages,
+            self.v_pages, self.done, self.generator, self._stop_arr, packed,
+            shapes=(pt.shape[0], pt.shape[1], len(fb)), steps=steps,
+            page_size=self.page_size, temperature=self.temperature,
+            top_k=self.top_k, top_p=self.top_p, rope=self.rope)
+        return self._meta(toks)
+
+    def _preempt(self, slot: int):
+        """Evict a slot under pool pressure: free its pages, freeze its row
+        (its stale writes land on the garbage page through the zeroed page
+        table row), and re-queue the request at the FRONT so it resumes,
+        by a prefill of prompt + generated-so-far, once pages free up."""
+        req = self.active.pop(slot)
+        self.allocator.free_seq(slot)
+        self.done[slot] = True
+        self._slot_budget.pop(slot, None)
+        self._reserved_caps.pop(slot, None)
+        req.preempted += 1
+        self.n_preemptions += 1
+        if len(self._effective_ids(req)) >= self.max_len:
+            # the sequence already fills its cache: it cannot generate
+            # further, and a re-queue could never be admitted again
+            req.finish_time = time.perf_counter()
+            self._preempt_retired.append(req)
+        else:
+            self.queue.insert(0, req)
+
+    def _retire_slot(self, slot: int):
+        self.allocator.free_seq(slot)
+        self._reserved_caps.pop(slot, None)

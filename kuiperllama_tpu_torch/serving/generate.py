@@ -67,7 +67,7 @@ def _fused_logits(cfg: ModelConfig, params, token, pos, cache, rope):
 def decode_chunk(cfg: ModelConfig, params, token, pos, kv_cache, done,
                  generator, stop_ids, steps: int, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 1.0, active_len: int = 0,
-                 rope=None, fused: bool = False):
+                 rope=None, fused: bool = False, drop_past_end: bool = True):
     """Run `steps` decode iterations on the device.
 
     token: int32 [B] current token; pos: int32 [B] its position.
@@ -78,6 +78,8 @@ def decode_chunk(cfg: ModelConfig, params, token, pos, kv_cache, done,
     fused: take the B = 1 decode megakernel; the chunk leaves it for the
       layered path when its window outgrows the plan (as the JAX
       `decode_chunk` does).
+    drop_past_end: a position at or past the window drops its cache write
+      (decoder.forward); False promises that no row gets there.
     Returns (tokens int32 [B, steps], token, pos, kv_cache, done), all on
     the device. Emitted tokens after a row finishes repeat the stop token.
     """
@@ -98,7 +100,7 @@ def decode_chunk(cfg: ModelConfig, params, token, pos, kv_cache, done,
             logits = _fused_logits(cfg, params, token, pos, cache, rope)
         else:
             logits, _ = decoder.decode_step(cfg, params, token, pos, cache,
-                                            rope=rope)
+                                            rope=rope, drop_past_end=drop_past_end)
         nxt = sample_token(logits, generator, temperature, top_k, top_p)
         nxt = torch.where(done, token, nxt)
         # a frozen row keeps overwriting the same slot with the same token,
@@ -220,6 +222,7 @@ class Generator:
                 cfg, self.params, token, pos, cache, done, gen, stop_arr,
                 steps=steps, temperature=temperature, top_k=top_k, top_p=top_p,
                 active_len=active, rope=self.rope, fused=fused,
+                drop_past_end=False,
             )
             max_pos += steps
             toks_np = toks.cpu().numpy()  # the chunk's one trip to the host

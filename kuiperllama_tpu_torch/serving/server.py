@@ -1,0 +1,253 @@
+"""Minimal HTTP serving front end over the continuous-batching engine, a
+port of kuiperllama_tpu/serving/server.py.
+
+Standard library only: a ThreadingHTTPServer accepting JSON POSTs, ONE
+engine thread that owns the device (every request thread only validates,
+enqueues and waits), and the PagedEngine doing the continuous batching.
+
+Endpoints:
+  POST /generate   {"prompt": str | "prompt_ids": [int],
+                    "max_new_tokens": int=128}
+      -> {"text": str?, "ids": [int], "ttft_ms": float, "tokens": int}
+         400 {"error": ...} for a request that fails validation
+  GET  /healthz    -> {"ok": true, "active": n, "queued": n}
+  GET  /metrics    -> served-request counters and TTFT/latency percentiles
+                      over the last 512 completions
+
+Usage:
+  python -m kuiperllama_tpu_torch.serving.server --model m.q8.bin \
+      --tokenizer tok.model --family llama2 --port 8000 [--device cpu]
+or in-process:
+  srv = InferenceServer(engine, tokenizer); srv.start(); srv.submit(...)
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import queue
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+from ..errors import check
+from .engine import Engine, Request
+
+
+class InferenceServer:
+    """Engine-thread wrapper: HTTP (or any) threads submit requests and
+    block on a per-request event; one loop thread owns the engine and the
+    device."""
+
+    def __init__(self, engine: Engine, tokenizer=None,
+                 poll_idle_s: float = 0.005):
+        self.engine = engine
+        self.tokenizer = tokenizer if tokenizer is not None \
+            else engine.tokenizer
+        self._q: "queue.Queue[tuple[Request, threading.Event]]" = queue.Queue()
+        self._events = {}
+        self._lock = threading.Lock()
+        self._poll = poll_idle_s
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # lifetime counters and a window of the last 512 completions
+        self.n_served = 0
+        self.n_tokens = 0
+        self.started_unix = time.time()
+        self._window = collections.deque(maxlen=512)
+
+    # -- engine thread
+
+    def _loop(self):
+        eng = self.engine
+        if eng.device.type == "cuda":
+            # kernel wrappers launch on the current device's current stream
+            import torch
+
+            torch.cuda.set_device(eng.device)
+        while not self._stop.is_set():
+            moved = False
+            while True:
+                try:
+                    req, ev = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                with self._lock:
+                    self._events[req.request_id] = ev
+                eng.submit(req)
+                moved = True
+            if eng.has_work:
+                for fin in eng.step():
+                    with self._lock:
+                        ev = self._events.pop(fin.request_id, None)
+                        self.n_served += 1
+                        self.n_tokens += len(fin.out_ids)
+                        self._window.append(
+                            (fin.ttft_s, fin.finish_time - fin.submit_time,
+                             len(fin.out_ids)))
+                    if ev is not None:
+                        ev.set()
+                moved = True
+            if not moved:
+                time.sleep(self._poll)
+
+    def start(self):
+        if self._thread is not None:
+            raise RuntimeError("the server is already started")
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            self._thread = None
+
+    # -- request surface (thread-safe)
+
+    def validate(self, prompt_ids, max_new_tokens) -> Request:
+        """The Request for a submission, or InvalidArgument: the prompt is
+        non-empty and shorter than the engine's max_len, every id lies in
+        the vocabulary, and max_new_tokens >= 1. Nothing invalid reaches the
+        engine thread."""
+        eng = self.engine
+        check(isinstance(prompt_ids, (list, tuple)),
+              "prompt_ids must be a list of ints")
+        check(all(isinstance(i, int) and not isinstance(i, bool)
+                  for i in prompt_ids), "prompt_ids must be a list of ints")
+        check(len(prompt_ids) >= 1, "the prompt is empty")
+        check(len(prompt_ids) < eng.max_len,
+              f"the prompt has {len(prompt_ids)} tokens; max_len is {eng.max_len}")
+        vocab = eng.cfg.vocab_size
+        check(all(0 <= i < vocab for i in prompt_ids),
+              f"prompt ids must lie in [0, {vocab})")
+        check(isinstance(max_new_tokens, int) and not isinstance(max_new_tokens, bool)
+              and max_new_tokens >= 1, "max_new_tokens must be an int >= 1")
+        return Request(prompt_ids=list(prompt_ids), max_new_tokens=max_new_tokens)
+
+    def submit(self, prompt: Optional[str] = None, prompt_ids=None,
+               max_new_tokens: int = 128, timeout_s: float = 600.0) -> dict:
+        if prompt_ids is None:
+            check(prompt is not None, "prompt or prompt_ids required")
+            check(self.tokenizer is not None, "no tokenizer configured")
+            prompt_ids = self.tokenizer.encode(prompt)
+        req = self.validate(prompt_ids, max_new_tokens)
+        req.submit_time = time.perf_counter()  # TTFT includes the queue wait
+        ev = threading.Event()
+        self._q.put((req, ev))
+        if not ev.wait(timeout_s):
+            raise TimeoutError(f"request {req.request_id} timed out")
+        out = dict(ids=list(req.out_ids), tokens=len(req.out_ids),
+                   ttft_ms=round(req.ttft_s * 1e3, 1),
+                   wall_ms=round((req.finish_time - req.submit_time) * 1e3, 1))
+        if self.tokenizer is not None:
+            out["text"] = self.tokenizer.decode(req.out_ids)
+        return out
+
+    def metrics(self) -> dict:
+        eng = self.engine
+        with self._lock:
+            win = list(self._window)
+        out = dict(uptime_s=round(time.time() - self.started_unix, 1),
+                   served=self.n_served, tokens=self.n_tokens,
+                   active=eng.n_active, queued=len(eng.queue),
+                   preemptions=eng.n_preemptions)
+        if win:
+            def pct(vals, p):
+                v = sorted(vals)
+                return round(v[min(len(v) - 1, int(len(v) * p / 100))], 4)
+
+            ttfts = [w[0] for w in win]
+            walls = [w[1] for w in win]
+            out.update(window=len(win),
+                       ttft_s_p50=pct(ttfts, 50), ttft_s_p99=pct(ttfts, 99),
+                       latency_s_p50=pct(walls, 50), latency_s_p99=pct(walls, 99),
+                       window_tokens=sum(w[2] for w in win))
+        return out
+
+
+def make_http_server(inference: InferenceServer, host: str = "127.0.0.1",
+                     port: int = 8000) -> ThreadingHTTPServer:
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # quiet
+            pass
+
+        def _json(self, code: int, obj):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                eng = inference.engine
+                self._json(200, {"ok": True, "active": eng.n_active,
+                                 "queued": len(eng.queue)})
+            elif self.path == "/metrics":
+                self._json(200, inference.metrics())
+            else:
+                self._json(404, {"error": "not found"})
+
+        def do_POST(self):
+            if self.path != "/generate":
+                self._json(404, {"error": "not found"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", "0"))
+                payload = json.loads(self.rfile.read(n) or b"{}")
+                check(isinstance(payload, dict), "the body must be a JSON object")
+                out = inference.submit(
+                    prompt=payload.get("prompt"),
+                    prompt_ids=payload.get("prompt_ids"),
+                    max_new_tokens=payload.get("max_new_tokens", 128))
+                self._json(200, out)
+            except Exception as e:  # noqa: BLE001 (reported to the client)
+                self._json(400, {"error": f"{type(e).__name__}: {e}"})
+
+    return ThreadingHTTPServer((host, port), Handler)
+
+
+def main(argv=None):
+    import argparse
+
+    import torch
+
+    from ..api import KuiperModel
+    from .engine import PagedEngine
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", required=True)
+    ap.add_argument("--tokenizer")
+    ap.add_argument("--family", default="llama2")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=2048)
+    ap.add_argument("--prefill-chunk", type=int, default=256)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    model = KuiperModel.from_checkpoint(args.model, args.tokenizer,
+                                        family=args.family)
+    model.init(dtype=torch.bfloat16, device=args.device)
+    eng = PagedEngine(model.cfg, model.params, tokenizer=model.tokenizer,
+                      max_batch=args.slots, max_len=args.max_len,
+                      cache_dtype=torch.bfloat16,
+                      prefill_chunk=args.prefill_chunk)
+    srv = InferenceServer(eng)
+    srv.start()
+    httpd = make_http_server(srv, args.host, args.port)
+    print(f"[server] listening on {args.host}:{httpd.server_address[1]} "
+          f"({args.slots} slots, max_len {args.max_len}, {args.device})",
+          flush=True)
+    try:
+        httpd.serve_forever()
+    finally:
+        srv.stop()
+
+
+if __name__ == "__main__":
+    main()

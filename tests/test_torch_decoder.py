@@ -134,3 +134,62 @@ def test_prefill_logits_match_transformers(maker):
     got, _ = tdec.forward(tc, params, torch.from_numpy(toks), pos,
                           tdec.init_kv_cache(tc, 2, 32, device="cpu"))
     np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=1e-3)
+
+
+def test_sentinel_positions_drop_their_writes():
+    """An admit prefill's rows of live slots pass the sentinel position S:
+    their cache rows stay as they were (JAX's scatter drops the writes) and
+    the admitted rows match JAX `forward_inner`, logits and cache."""
+    jc, jparams, tc, tparams = _models("tinychar/tinychar.bin")
+    rng = np.random.default_rng(9)
+    B, T, S = 3, 8, 16
+    toks = rng.integers(0, jc.vocab_size, (B, T)).astype(np.int32)
+    lens = np.asarray([8, 1, 5], np.int32)
+    admit = np.asarray([True, False, True])
+    pos = np.where(admit[:, None], np.arange(T, dtype=np.int32), S).astype(np.int32)
+    shape = (jc.n_layers, B, S, jc.n_kv_heads, jc.head_dim)
+    k0 = rng.standard_normal(shape).astype(np.float32)
+    v0 = rng.standard_normal(shape).astype(np.float32)
+    mask = np.arange(S)[None] < lens[:, None]
+    fwd = _jax_forward(jc, "fast")
+    want, jcache = fwd(jparams, jnp.asarray(toks), jnp.asarray(pos),
+                       dict(k=jnp.asarray(k0), v=jnp.asarray(v0)),
+                       jnp.asarray(mask), jnp.asarray(lens - 1))
+    tcache = dict(k=torch.from_numpy(k0.copy()), v=torch.from_numpy(v0.copy()))
+    got, tcache = tdec.forward(tc, tparams, torch.from_numpy(toks),
+                               torch.from_numpy(pos), tcache,
+                               torch.from_numpy(mask),
+                               last_pos=torch.from_numpy(lens - 1))
+    np.testing.assert_array_equal(tcache["k"][:, 1].numpy(), k0[:, 1])
+    np.testing.assert_array_equal(tcache["v"][:, 1].numpy(), v0[:, 1])
+    rows = np.flatnonzero(admit)
+    assert _rel(got[rows], np.asarray(want)[rows]) <= 1e-5
+    for name in ("k", "v"):
+        np.testing.assert_allclose(tcache[name][:, rows].numpy(),
+                                   np.asarray(jcache[name])[:, rows],
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_decode_past_the_cache_drops_its_write():
+    """A decode step whose row sits at position S (a row that decoded past a
+    full cache) leaves that row's cache as it was and gives JAX's logits
+    for every row, the dropped one included."""
+    jc, jparams, tc, tparams = _models("tinychar/tinychar.bin")
+    rng = np.random.default_rng(11)
+    S = 8
+    toks = np.asarray([[5], [9]], np.int32)
+    pos = np.asarray([[3], [S]], np.int32)
+    shape = (jc.n_layers, 2, S, jc.n_kv_heads, jc.head_dim)
+    k0 = rng.standard_normal(shape).astype(np.float32)
+    v0 = rng.standard_normal(shape).astype(np.float32)
+    want, jcache = _jax_forward(jc, "fast")(
+        jparams, jnp.asarray(toks), jnp.asarray(pos),
+        dict(k=jnp.asarray(k0), v=jnp.asarray(v0)), None, None)
+    tcache = dict(k=torch.from_numpy(k0.copy()), v=torch.from_numpy(v0.copy()))
+    got, _ = tdec.decode_step(tc, tparams, torch.from_numpy(toks[:, 0]),
+                              torch.from_numpy(pos[:, 0]), tcache)
+    for name, start in (("k", k0), ("v", v0)):
+        np.testing.assert_array_equal(tcache[name][:, 1].numpy(), start[:, 1])
+        np.testing.assert_allclose(tcache[name].numpy(), np.asarray(jcache[name]),
+                                   rtol=1e-5, atol=1e-5)
+    assert _rel(got, np.asarray(want)[:, 0]) <= 1e-5

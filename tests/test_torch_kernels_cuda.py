@@ -284,3 +284,94 @@ def test_fused_decode_rejects_bad_input(dev):
             group_size=32))
         fd.fused_decode_step(cfg, dict(params, blocks=blocks), x0, kc,
                              kc.clone(), p, sin, cos)
+
+
+# ---------------------------------------------------------------------------
+# The paged flash-decode kernel (csrc/paged_attention.cu) against its plain
+# version. The normalised output acc / l is held relative to max|plain|: fp32
+# pools 1e-6; bf16 pools 1e-3 (p is rounded to bf16 before the pv product on
+# both sides, and a last-bit difference of the score sums can round it to the
+# neighbouring bf16 value). m to 1e-6 of max|m|, l to 1e-5. chip_smoke.py
+# holds the kernel to the same limits.
+
+
+def _paged_case(dev, dtype, hd, kv_mul, ps, lens, KH=2, L=2, seed=0):
+    """q [B, H, hd] and stacked pools [L, P, ps, KH*hd] in `dtype`, a
+    shuffled page table, and the work list on the card."""
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+
+    rng = np.random.default_rng(seed)
+    B, H = len(lens), KH * kv_mul
+    max_pages = -(-max(lens) // ps) + 1
+    P = B * max_pages + 1
+    pools = [torch.from_numpy(rng.standard_normal((L, P, ps, KH * hd))
+                              .astype(np.float32)).to(dev, dtype) for _ in range(2)]
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(dev, dtype)
+    pt = rng.permutation(np.arange(1, P)).reshape(B, max_pages).astype(np.int32)
+    sl = np.asarray(lens, np.int32)
+    work = [torch.from_numpy(a).to(dev) for a in pa.build_work_list(pt, sl, ps)]
+    return q, pools, work, torch.from_numpy(sl).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("kv_mul", [1, 4, 7, 8])
+@pytest.mark.parametrize("ps", [8, 128])
+def test_paged_attention_matches_plain(dev, dtype, hd, kv_mul, ps):
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+
+    # ragged rows: one token, exact page multiples, a row with no items, a
+    # partly filled last page
+    lens = [1, ps, 0, 2 * ps, 3 * ps + 5, ps - 1]
+    q, (kp, vp), work, sl = _paged_case(dev, dtype, hd, kv_mul, ps, lens)
+    before = pa.paged_attention_flat.launches
+    acc, m, l = pa.paged_attention_flat(q, kp, vp, *work, sl, page_size=ps,
+                                        layer_idx=1)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_flat.launches == before + 1
+    ra, rm, rl = pa.paged_attention_flat_ref(q, kp, vp, *work, sl, page_size=ps,
+                                             layer_idx=1)
+    rows = sl > 0
+    out, ref = (a[rows] / l_[rows][..., None] for a, l_ in ((acc, l), (ra, rl)))
+    assert torch.isfinite(out).all()
+    assert _rel(out, ref) <= (1e-6 if dtype == torch.float32 else 1e-3)
+    assert _rel(m[rows], rm[rows]) <= 1e-6
+    assert _rel(l[rows], rl[rows]) <= 1e-5
+    # a row with no items gets the flash identity
+    empty = ~rows
+    assert (acc[empty] == 0).all() and (l[empty] == 0).all()
+    assert (m[empty] == pa.NEG_INF).all()
+    # deterministic: fixed-order sums, no atomics
+    again = pa.paged_attention_flat(q, kp, vp, *work, sl, page_size=ps, layer_idx=1)
+    assert all(torch.equal(a, b) for a, b in zip(again, (acc, m, l)))
+
+
+def test_paged_attention_one_layer_pool_and_mixed_dtypes(dev):
+    """A one-layer [P, ps, KH*hd] pool, and a bf16 query against fp32 pools
+    (the kernel rounds K to the query's dtype, as the TPU kernel does)."""
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+
+    q, (kp, vp), work, sl = _paged_case(dev, torch.float32, 64, 4, 16, [40, 3])
+    for qq in (q, q.to(torch.bfloat16)):
+        got = pa.paged_attention_flat(qq, kp[1].contiguous(), vp[1].contiguous(),
+                                      *work, sl, page_size=16)
+        want = pa.paged_attention_flat_ref(qq, kp, vp, *work, sl, page_size=16,
+                                           layer_idx=1)
+        assert _rel(got[0] / got[2][..., None], want[0] / want[2][..., None]) <= 1e-6
+
+
+def test_paged_attention_rejects_bad_input(dev):
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+
+    q, (kp, vp), work, sl = _paged_case(dev, torch.bfloat16, 64, 2, 8, [9])
+    with pytest.raises(ValueError):  # stacked pools without a layer
+        pa.paged_attention_flat(q, kp, vp, *work, sl, page_size=8)
+    with pytest.raises(TypeError):  # an int64 work list
+        pa.paged_attention_flat(q, kp, vp, work[0].long(), *work[1:], sl,
+                                page_size=8, layer_idx=0)
+    with pytest.raises(ValueError):  # a pool on the CPU
+        pa.paged_attention_flat(q, kp.cpu(), vp, *work, sl, page_size=8,
+                                layer_idx=0)
+    with pytest.raises(ValueError):  # kv_mul 16 is past the kernel's tile
+        q16 = torch.zeros((1, 32, 64), device=dev, dtype=torch.bfloat16)
+        pa.paged_attention_flat(q16, kp, vp, *work, sl, page_size=8, layer_idx=0)

@@ -58,6 +58,17 @@ def test_no_jax_imports_in_port_sources():
     assert not [n for n in _modules(REPO / "chip_smoke.py", []) if _banned(n)]
 
 
+def test_scan_covers_the_serving_slice():
+    """The serving slice's modules are scanned; their imports of the
+    decoder, engine and tokenizer sit inside functions, which the AST walk
+    reads too."""
+    scanned = {f.relative_to(PKG).as_posix() for f, _ in _port_sources()}
+    assert {"api.py", "kvcache.py", "models/paged.py", "serving/engine.py",
+            "serving/server.py", "ops/kernels/paged_attention.py"} <= scanned
+    lazy = set(_modules(PKG / "serving" / "server.py", ["kuiperllama_tpu_torch", "serving"]))
+    assert {"kuiperllama_tpu_torch.api", "kuiperllama_tpu_torch.serving.engine"} <= lazy
+
+
 def test_relative_import_resolution():
     got = list(_modules(PKG / "ops" / "linear.py", ["kuiperllama_tpu_torch", "ops"]))
     assert "kuiperllama_tpu_torch.quant" in got
