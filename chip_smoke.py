@@ -19,20 +19,44 @@ last line:
      width and 2 layers, one step at pos 100 in a 256-slot window: error,
      CUDA-event times of the kernel and the plain version, the port's
      layered eager step on the same weights, and the byte bound.
+  4b. big kernel: the big-model megakernel against its plain version on the
+     card (and on the CPU) at Llama-2-7B INT8 g 64 with bf16 scales,
+     Llama-2-7B g 256 with fp32 scales and Llama-3-8B g 64 (BIG_CASES), full
+     width and 2 layers, one step at pos 100 in a 256-slot window: error,
+     CUDA-event times of the kernel and the plain version, the byte bound,
+     and us per phase per layer from one traced launch beside each phase's
+     byte time.
+  4c. chunk kernel: the greedy chunk megakernel against its plain version on
+     the card at TinyLlama-1.1B INT8 g 256, Qwen2.5-0.5B bf16 and
+     Llama-3.2-1B INT8 g 256 (CHUNK_CASES), 2 layers, CHUNK_STEPS steps from
+     pos 100: tokens equal up to an exact logit tie, the chunk's K/V rows,
+     ms per step against the per-step bound (layer stack and lm_head).
   5. fixture: checkpoints/tinychar/tinychar.q8.bin, 24 greedy tokens on the
      card equal to the same run on the CPU (which uses the plain versions);
      the layered route with fp32 params, then the megakernel route
-     (fused_step=True) with bf16 params and cache.
+     (fused_step=True) with bf16 params and cache, then the chunk route
+     (KT_FUSED_CHUNK=1): one chunk launch for the 23 decode steps.
   6. main path: Llama-2-7B at full width (INT8 group 256, bf16 scales,
      activations and cache, cache length 1024, random weights from a seed),
      Generator.generate_batch_ids on one 32-token prompt, 128 new tokens,
      greedy. Kernel launch counts are zeroed just before and read just after.
      Llama-2-7B does not fit the megakernel's plan and decodes layered.
+  6b. big route: Llama-2-7B INT8 g 64 (bf16 scales), the same setup under
+     KT_FUSED_BIG=1: one big-kernel launch and one lm_head GEMV per decode
+     step, counted exactly; the same weights on the layered route beside it
+     and a decode profile of the big route; then the big kernel alone at
+     full depth, held against its plain version on the CPU, timed and
+     traced.
   7. main paths of the megakernel route: TinyLlama-1.1B INT8 g 256 and
      Qwen2.5-0.5B bf16, full width and depth, the same setup and the auto
      route; each with its decode profile, then the megakernel alone at the
      main path's shapes: held against its plain version (card and CPU),
      timed, and one launch traced for the time of each phase per layer.
+  7b. chunk route: TinyLlama-1.1B and Qwen2.5-0.5B as in 7 under
+     KT_FUSED_CHUNK=1 (64-step chunks): two chunk launches for the 127
+     decode steps, beside the per-step route's numbers, with a profile of
+     one chunk; then the chunk kernel alone at full depth (CHUNK_STEPS steps
+     from pos 100), held against its plain version on the card and timed.
   8. paged kernel (run after phase 4): the paged flash-decode kernel against
      its plain version on the card at B = 8 ragged rows (1 to 1024 tokens)
      on 128-token pages of a shuffled page table, layer 1 of a stacked pool:
@@ -70,9 +94,19 @@ flips an int8 rounding, so the limit is keyed on the activation type
 (FUSED_TOL; PERF.md records the readings each was set from). Where the
 activations stay bf16, layer 0's new K/V rows, made from the same input on
 both sides, are also held within one bf16 ulp (a K row at its head's
-magnitude: rope sums two products).
+magnitude: rope sums two products). The big kernel takes int8 activations
+in every GEMV (FUSED_TOL's int8 limits); at full depth it is held to the
+plain version run on the CPU, since the plain version run on the card sits
+about 0.1 from it (cuBLAS summation order through 32 layers of int8
+requantization). The chunk kernel's tokens must be equal up to a logit tie
+(the plain version's logits of the two tokens within 2e-3 of max(1,
+max|logit|) at the first difference at 2 layers, within FUSED_TOL at full
+depth, where x_final itself moves by 2-3% between two valid summation
+orders; nothing after it compared), its K/V rows up to there within
+FUSED_TOL.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -93,13 +127,24 @@ FIXTURE = "checkpoints/tinychar/tinychar.q8.bin"
 
 # megakernel limits by depth and by whether any GEMV takes int8 activations
 FUSED_TOL = {("2 layers", False): 2e-2, ("2 layers", True): 5e-2,
-             ("full depth", False): 5e-2}
+             ("full depth", False): 5e-2, ("full depth", True): 1e-1}
 FUSED_LAYERS, FUSED_POS, FUSED_WINDOW, CACHE_LEN = 2, 100, 256, 1024
 # megakernel geometries: (label, preset, INT8, group size)
 FUSED_CASES = [("tinyllama-1.1b", "tinyllama-1.1b", True, 256),
                ("llama3.2-1b", "llama3.2-1b", True, 256),
                ("qwen2.5-0.5b", "qwen2.5-0.5b", False, 0),
                ("tinyllama-1.1b g64", "tinyllama-1.1b", True, 64)]
+
+# big-model megakernel geometries: (label, preset, group size, bf16 scales)
+BIG_CASES = [("llama2-7b g64", "llama2-7b", 64, True),
+             ("llama2-7b g256 fp32 scales", "llama2-7b", 256, False),
+             ("llama3-8b g64", "llama3-8b", 64, True)]
+# chunk megakernel geometries: (label, preset, INT8, group size), CHUNK_STEPS
+# greedy steps per launch from FUSED_POS
+CHUNK_CASES = [("tinyllama-1.1b", "tinyllama-1.1b", True, 256),
+               ("qwen2.5-0.5b", "qwen2.5-0.5b", False, 0),
+               ("llama3.2-1b", "llama3.2-1b", True, 256)]
+CHUNK_STEPS = 16
 
 # paged attention: (label, H, KH, hd) at B = 8 ragged rows on 128-token
 # pages of a shuffled page table, read at layer 1 of a stacked pool
@@ -134,10 +179,30 @@ GEMV_SHAPES = [("wqkv", 4096, 12288, 32), ("wo", 4096, 4096, 32),
 PREFILL_M = 32
 
 CARD = ""
+T0 = time.perf_counter()
 
 
 def emit(obj):
+    """One JSON line; phase rows carry the run's elapsed seconds (t_s)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - T0, 1))
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def knob(name):
+    """Set the route knob `name` (a KT_* variable) to "1" for the block;
+    None sets nothing."""
+    old = os.environ.get(name) if name else None
+    if name:
+        os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        if name and old is None:
+            del os.environ[name]
+        elif name:
+            os.environ[name] = old
 
 
 def nvidia_smi_line() -> str:
@@ -281,23 +346,29 @@ def phase_fixture(dev):
 
     cfg, params = load_bin(os.path.join(HERE, FIXTURE))
     prompt = [1, 20, 33, 45, 60, 7, 90]
-    for route, dtype, fused in (("layered", torch.float32, False),
-                                ("fused", torch.bfloat16, True)):
+    # (route, dtype, fused_step, knob, expected step and chunk launches)
+    for route, dtype, fused, knob_on, expect in (
+            ("layered", torch.float32, False, None, (0, 0)),
+            ("fused", torch.bfloat16, True, None, (23, 0)),
+            ("chunk", torch.bfloat16, True, "KT_FUSED_CHUNK", (0, 1))):
         ids = {}
-        launches = fd.fused_decode_step.launches
-        for where in ("cpu", dev):
-            gen = Generator(cfg, fuse_params(to_device(params, device=where,
-                                                       dtype=dtype)),
-                            cache_len=128, cache_dtype=dtype, fused_step=fused)
-            ids[str(where)] = gen.generate_ids(prompt, max_new_tokens=24)[0]
+        step0, chunk0 = fd.fused_decode_step.launches, fd.fused_decode_chunk.launches
+        with knob(knob_on):
+            for where in ("cpu", dev):
+                gen = Generator(cfg, fuse_params(to_device(params, device=where,
+                                                           dtype=dtype)),
+                                cache_len=128, cache_dtype=dtype, fused_step=fused)
+                ids[str(where)] = gen.generate_ids(prompt, max_new_tokens=24)[0]
         torch.cuda.synchronize()
-        launches = fd.fused_decode_step.launches - launches
+        launches = (fd.fused_decode_step.launches - step0,
+                    fd.fused_decode_chunk.launches - chunk0)
         ok = (ids["cpu"] == ids[str(dev)] and len(ids["cpu"]) == 24
-              and (launches == 23 if fused else launches == 0))
+              and launches == expect)
         emit(dict(phase="fixture", checkpoint=FIXTURE, route=route,
-                  dtype=str(dtype).replace("torch.", ""),
+                  dtype=str(dtype).replace("torch.", ""), knob=knob_on,
                   tokens_gpu=ids[str(dev)], tokens_cpu=ids["cpu"],
-                  fused_decode_launches=launches, ok=ok, card=CARD))
+                  fused_decode_launches=launches[0],
+                  fused_decode_chunk_launches=launches[1], ok=ok, card=CARD))
         if not ok:
             raise AssertionError(f"tinychar greedy tokens ({route} route) "
                                  "differ between GPU and CPU")
@@ -309,8 +380,6 @@ def phase_main_path(dev):
     from kuiperllama_tpu_torch.config import preset_config
     from kuiperllama_tpu_torch.fuse import fuse_params
     from kuiperllama_tpu_torch.models import decoder
-    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
-    from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
     from kuiperllama_tpu_torch.params import param_bytes, random_params_device
     from kuiperllama_tpu_torch.quant import cast_scales
     from kuiperllama_tpu_torch.serving.generate import Generator
@@ -333,21 +402,17 @@ def phase_main_path(dev):
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats(dev)
-    qm.quant_gemv.launches = 0
-    qm.quant_gemm.launches = 0
-    fd.fused_decode_step.launches = 0
+    zero_launches()
     rows, prefill_s, decode_s = gen.generate_batch_ids([prompt],
                                                        max_new_tokens=128)
-    launches = {"quant_gemv": qm.quant_gemv.launches,
-                "quant_gemm": qm.quant_gemm.launches}
-    fused_launches = fd.fused_decode_step.launches
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated(dev)
 
     steps = len(rows[0]) - 1
     ms_per_token = decode_s / steps * 1e3
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
-    expect = {"quant_gemv": 1 + steps * (4 * cfg.n_layers + 1),
-              "quant_gemm": 4 * cfg.n_layers}
+    expect = dict(NO_LAUNCHES, quant_gemv=1 + steps * (4 * cfg.n_layers + 1),
+                  quant_gemm=4 * cfg.n_layers)
 
     cache = decoder.init_kv_cache(cfg, 1, 1024, torch.bfloat16, device=dev)
     logits, _ = decoder.prefill(cfg, params, torch.tensor([prompt], device=dev),
@@ -356,8 +421,7 @@ def phase_main_path(dev):
     in_vocab = all(0 <= t < cfg.vocab_size for t in rows[0])
     ok = (len(rows[0]) == 128 and finite and in_vocab
           and logits.shape == (1, cfg.vocab_size)
-          and all(launches[k] > 0 for k in launches) and launches == expect
-          and fused_launches == 0 and not gen._fused_ok(1))
+          and launches == expect and not gen._fused_ok(1))
     emit(dict(phase="main_path", model="llama2-7b", group_size=256,
               dtype="bf16", cache_len=1024, prompt_len=32, new_tokens=len(rows[0]),
               prefill_ms=prefill_s * 1e3, decode_steps=steps,
@@ -367,8 +431,7 @@ def phase_main_path(dev):
               weight_bound_ms_per_token=bound_ms,
               share_of_weight_bound=bound_ms / ms_per_token,
               peak_memory_bytes=peak, init_s=init_s, launches=launches,
-              launches_expected=expect, fused_decode_launches=fused_launches,
-              logits_finite=finite, ok=ok, card=CARD))
+              launches_expected=expect, logits_finite=finite, ok=ok, card=CARD))
     if not ok:
         raise AssertionError("Llama-2-7B main path failed its checks")
     profile_decode(cfg, params, gen, prompt, dev)
@@ -398,10 +461,33 @@ def profile_decode(cfg, params, gen, prompt, dev, steps=16, fused=False,
                                fused=fused, drop_past_end=False)
     run()
     torch.cuda.synchronize()
-    by_name, wall_ms = device_profile(run)
+    zero_launches()
+    with chunk_kernel_events() as spans:
+        by_name, wall_ms = device_profile(run)
+    counted = read_launches()
+    # The profiler loses launches of the megakernels (the ctypes-launched
+    # cooperative kernels): some of the per-step kernels' and every chunk
+    # kernel's. A per-step kernel's recorded mean stands for its lost
+    # launches (the wrappers count them all); the chunk kernel's launches
+    # are timed by CUDA events around its wrapper.
+    recorded = {k: 0 for k in ("fused_decode", "fused_decode_big") if counted[k]}
+    for key, kname in (("fused_decode", "fused_decode_kernel"),
+                       ("fused_decode_big", "fused_big_kernel")):
+        for name, (ms, n) in list(by_name.items()):
+            if kname in name:
+                recorded[key] = n
+                by_name[name] = (ms / n * counted[key], counted[key])
+    if spans:
+        recorded["fused_decode_chunk"] = sum(
+            n for name, (_, n) in by_name.items() if "fused_chunk_kernel" in name)
+        by_name = {k: v for k, v in by_name.items() if "fused_chunk_kernel" not in k}
+        by_name["fused_chunk_kernel (CUDA events)"] = (
+            sum(a.elapsed_time(b) for a, b in spans), len(spans))
     busy_ms = sum(ms for ms, _ in by_name.values())
     row = dict(phase="decode_profile", model=model,
                route="fused" if fused else "layered", steps=steps,
+               megakernel_launches_counted_vs_profiled={
+                   k: [counted[k], recorded[k]] for k in recorded},
                wall_ms_per_step_profiled=wall_ms / steps,
                device_busy_ms_per_step=busy_ms / steps if by_name else "not measured",
                device_idle_share=1 - busy_ms / wall_ms if by_name else "not measured",
@@ -409,6 +495,32 @@ def profile_decode(cfg, params, gen, prompt, dev, steps=16, fused=False,
                top_kernels=top_kernels(by_name, steps), card=CARD)
     emit(row)
     return row
+
+
+@contextlib.contextmanager
+def chunk_kernel_events():
+    """CUDA events recorded around every chunk-kernel launch that the
+    Generator's decode_chunk makes inside the block: [(start, end)], read
+    after a synchronize."""
+    import torch
+
+    from kuiperllama_tpu_torch.serving import generate
+
+    real, spans = generate.fused_decode_chunk, []
+
+    def timed(*args, **kw):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = real(*args, **kw)
+        b.record()
+        spans.append((a, b))
+        return out
+
+    generate.fused_decode_chunk = timed
+    try:
+        yield spans
+    finally:
+        generate.fused_decode_chunk = real
 
 
 def device_profile(run):
@@ -436,9 +548,10 @@ def top_kernels(by_name, steps):
             for k, (ms, n) in top]
 
 
-def fused_model(dev, preset, quantize, g, layers=None, seed=SEED):
+def fused_model(dev, preset, quantize, g, layers=None, seed=SEED, s_bf16=True):
     """Random fused params of a preset at full width (INT8 with bf16 scales,
-    or dense bf16), drawn on the card from a seed."""
+    or fp32 ones when not s_bf16, or dense bf16), drawn on the card from a
+    seed."""
     import torch
 
     from kuiperllama_tpu_torch.config import preset_config
@@ -452,7 +565,7 @@ def fused_model(dev, preset, quantize, g, layers=None, seed=SEED):
     cfg = preset_config(preset, **over)
     params = random_params_device(cfg, device=dev, seed=seed,
                                   quantize=quantize, group_size=g or 64)
-    if quantize:
+    if quantize and s_bf16:
         params = cast_scales(params, torch.bfloat16)
     return cfg, fuse_params(params)
 
@@ -523,26 +636,31 @@ def _bf16_ulp(t):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-def hold_fused(cfg, params, x0, full_k, full_v, A, p, sin, cos, depth):
-    """The megakernel against its plain version on the same inputs, each run
-    on its own copy of the caches: the plain version on the card and on the
-    CPU (whose summation order the CPU tests tie to the JAX package's).
-    Holds x_final and the new K/V rows of every layer within the depth's
-    FUSED_TOL, and checks that no other slot changed. Returns (the errors
-    and checks, the kernel's x_final on the card)."""
+def hold_fused(cfg, params, x0, full_k, full_v, A, p, sin, cos, depth,
+               kernel=None, plain=None, flags=None, held=("plain", "plain_cpu")):
+    """A per-step megakernel (the small one unless `kernel`, `plain` and the
+    GEMVs' activation types `flags` say otherwise) against its plain version
+    on the same inputs, each run on its own copy of the caches: the plain
+    version on the card and on the CPU (whose summation order the CPU tests
+    tie to the JAX package's). Holds x_final and the new K/V rows of every
+    layer within the depth's FUSED_TOL against the runs named in `held` (the
+    others' errors are reported), and checks that no other slot changed.
+    Returns (the errors and checks, the kernel's x_final on the card)."""
     import torch
 
     from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
 
+    kernel = kernel or fd.fused_decode_step
+    plain = plain or fd.fused_decode_step_ref
     pos, L, hd = int(p.item()), cfg.n_layers, cfg.head_dim
     cpu = torch.device("cpu")
     cpu_params = dict(blocks={k: _to_cpu(v) for k, v in params["blocks"].items()},
                       final_norm=params["final_norm"].cpu())
     runs = {}
     for name, fn, prm, where in (
-            ("kernel", fd.fused_decode_step, params, x0.device),
-            ("plain", fd.fused_decode_step_ref, params, x0.device),
-            ("plain_cpu", fd.fused_decode_step_ref, cpu_params, cpu)):
+            ("kernel", kernel, params, x0.device),
+            ("plain", plain, params, x0.device),
+            ("plain_cpu", plain, cpu_params, cpu)):
         kc, vc = full_k.to(where, copy=True), full_v.to(where, copy=True)
         x, _, _ = fn(cfg, prm, x0.to(where), kc[:, :A], vc[:, :A], p.to(where),
                      sin.to(where), cos.to(where))
@@ -563,23 +681,24 @@ def hold_fused(cfg, params, x0, full_k, full_v, A, p, sin, cos, depth):
     errs = {ref: errors(runs["kernel"], runs[ref]) for ref in ("plain", "plain_cpu")}
     # not held: the spread of one plain version between two summation orders
     spread = errors(runs["plain"], runs["plain_cpu"])
-    xr, kr, vr = runs["plain"]
+    xr, kr, vr = runs[held[0]]
     k0, k0r = kk[0, pos].float(), kr[0, pos].float()
     head_mag = k0r.abs().reshape(-1, hd).amax(-1, keepdim=True)
     k_ulp_ok = bool(((k0 - k0r).abs().reshape(-1, hd) <= _bf16_ulp(head_mag)).all())
     v_ulp_ok = bool(((vk[0, pos].float() - vr[0, pos].float()).abs()
                      <= _bf16_ulp(vr[0, pos])).all())
-    flags = fd.gemv_int8_flags(params["blocks"],
-                               fd.plan_tiles(params["blocks"], full_k.dtype, A))
+    if flags is None:
+        flags = fd.gemv_int8_flags(params["blocks"],
+                                   fd.plan_tiles(params["blocks"], full_k.dtype, A))
     # with int8 activations even layer 0's input differs in the last bit
     # (torch's rmsnorm mean sums in another order) and a flipped int8
     # rounding moves the row by more than an ulp: no one-ulp check there
     ulp_checked = not any(flags)
     tol = FUSED_TOL[(depth, any(flags))]
-    ok = (all(e <= tol for pair in errs.values() for e in pair)
+    ok = (all(e <= tol for ref in held for e in errs[ref])
           and (k_ulp_ok and v_ulp_ok or not ulp_checked)
           and untouched and bool(torch.isfinite(xk.float()).all()))
-    check = dict(int8_activation=list(flags), tol=tol,
+    check = dict(int8_activation=list(flags), tol=tol, held_against=list(held),
                  rel_err_x=errs["plain"][0], rel_err_x_vs_plain_on_cpu=errs["plain_cpu"][0],
                  rel_err_new_rows=errs["plain"][1],
                  rel_err_new_rows_vs_plain_on_cpu=errs["plain_cpu"][1],
@@ -652,7 +771,6 @@ def phase_fused_main_path(dev, label, preset, quantize):
     import torch
 
     from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
-    from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
     from kuiperllama_tpu_torch.params import param_bytes
     from kuiperllama_tpu_torch.serving.generate import Generator
 
@@ -672,20 +790,16 @@ def phase_fused_main_path(dev, label, preset, quantize):
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats(dev)
-    qm.quant_gemv.launches = 0
-    qm.quant_gemm.launches = 0
-    fd.fused_decode_step.launches = 0
+    zero_launches()
     rows, prefill_s, decode_s = gen.generate_batch_ids([prompt], max_new_tokens=128)
-    launches = {"fused_decode": fd.fused_decode_step.launches,
-                "quant_gemv": qm.quant_gemv.launches,
-                "quant_gemm": qm.quant_gemm.launches}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated(dev)
 
     steps = len(rows[0]) - 1
     ms_per_token = decode_s / steps * 1e3
-    expect = {"fused_decode": steps,
-              "quant_gemv": 1 + steps if quantize else 0,
-              "quant_gemm": 4 * cfg.n_layers if quantize else 0}
+    expect = dict(NO_LAUNCHES, fused_decode=steps,
+                  quant_gemv=1 + steps if quantize else 0,
+                  quant_gemm=4 * cfg.n_layers if quantize else 0)
     layered = Generator(cfg, params, cache_len=CACHE_LEN, cache_dtype=torch.bfloat16,
                         chunk=128, fused_step=False)
     rows_layered, _, layered_decode_s = layered.generate_batch_ids([prompt], 128)
@@ -696,21 +810,22 @@ def phase_fused_main_path(dev, label, preset, quantize):
           and launches == expect)
     prof = profile_decode(cfg, params, gen, prompt, dev, fused=True, model=label)
     busy = prof["device_busy_ms_per_step"]
-    emit(dict(phase="main_path", model=label, quant="int8" if quantize else "bf16",
-              group_size=256 if quantize else None, dtype="bf16", cache_len=CACHE_LEN,
-              prompt_len=32, new_tokens=len(rows[0]), route="fused (auto)",
-              prefill_ms=prefill_s * 1e3, decode_steps=steps,
-              decode_ms_per_token=ms_per_token, decode_tokens_per_s=steps / decode_s,
-              weight_bytes_per_token=weight_bytes, floor_ms_per_token=floor_ms,
-              share_of_floor=floor_ms / ms_per_token,
-              layered_decode_ms_per_token=layered_decode_s / (len(rows_layered[0]) - 1) * 1e3,
-              first_token_differing_from_layered=first_diff,
-              launches_per_step_profiled=prof["kernels_per_step"],
-              device_busy_ms_per_step=busy,
-              device_idle_share_unprofiled=(1 - busy / ms_per_token
-                                            if isinstance(busy, float) else "not measured"),
-              peak_memory_bytes=peak, init_s=init_s, launches=launches,
-              launches_expected=expect, ok=ok, card=CARD))
+    main_row = dict(phase="main_path", model=label, quant="int8" if quantize else "bf16",
+                    group_size=256 if quantize else None, dtype="bf16", cache_len=CACHE_LEN,
+                    prompt_len=32, new_tokens=len(rows[0]), route="fused (auto)",
+                    prefill_ms=prefill_s * 1e3, decode_steps=steps,
+                    decode_ms_per_token=ms_per_token, decode_tokens_per_s=steps / decode_s,
+                    weight_bytes_per_token=weight_bytes, floor_ms_per_token=floor_ms,
+                    share_of_floor=floor_ms / ms_per_token,
+                    layered_decode_ms_per_token=layered_decode_s / (len(rows_layered[0]) - 1) * 1e3,
+                    first_token_differing_from_layered=first_diff,
+                    launches_per_step_profiled=prof["kernels_per_step"],
+                    device_busy_ms_per_step=busy,
+                    device_idle_share_unprofiled=(1 - busy / ms_per_token
+                                                  if isinstance(busy, float) else "not measured"),
+                    peak_memory_bytes=peak, init_s=init_s, launches=launches,
+                    launches_expected=expect, ok=ok, card=CARD)
+    emit(main_row)
     if not ok:
         raise AssertionError(f"{label} main path failed its checks")
 
@@ -748,7 +863,7 @@ def phase_fused_main_path(dev, label, preset, quantize):
     if not step["ok"]:
         raise AssertionError(f"fused_decode disagrees with its plain version "
                              f"at full depth ({label})")
-    return launches, step
+    return launches, step, main_row
 
 
 def paged_inputs(dev, H, KH, hd, dtype, seed, layers):
@@ -961,9 +1076,6 @@ def phase_engine_main_path(dev, label, preset, prefill_chunk=0, long_prompt=0):
     take the dequantize-then-matmul route)."""
     import torch
 
-    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
-    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
-    from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
     from kuiperllama_tpu_torch.serving.engine import PagedEngine, Request
 
     cfg, params = fused_model(dev, preset, True, 256)
@@ -983,8 +1095,7 @@ def phase_engine_main_path(dev, label, preset, prefill_chunk=0, long_prompt=0):
                     max_new_tokens=ENGINE_NEW) for i in range(ENGINE_REQUESTS)]
     eng.n_decode_steps = eng.n_prefill_calls = 0
     eng.prefill_wall_s = 0.0
-    qm.quant_gemv.launches = qm.quant_gemm.launches = 0
-    pa.paged_attention_flat.launches = fd.fused_decode_step.launches = 0
+    zero_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     for r in reqs:
@@ -992,16 +1103,12 @@ def phase_engine_main_path(dev, label, preset, prefill_chunk=0, long_prompt=0):
     done = eng.run([])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"paged_attention": pa.paged_attention_flat.launches,
-                "quant_gemm": qm.quant_gemm.launches,
-                "quant_gemv": qm.quant_gemv.launches,
-                "fused_decode": fd.fused_decode_step.launches}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     steps, prefills = eng.n_decode_steps, eng.n_prefill_calls
     L = cfg.n_layers
-    expect = {"paged_attention": L * steps,
-              "quant_gemm": steps * (4 * L + 1) + prefills,
-              "quant_gemv": 0, "fused_decode": 0}
+    expect = dict(NO_LAUNCHES, paged_attention=L * steps,
+                  quant_gemm=steps * (4 * L + 1) + prefills)
     generated = sum(len(r.out_ids) for r in reqs)
     ttft = sorted(r.ttft_s for r in reqs)
     pct = lambda v, p: v[min(len(v) - 1, int(len(v) * p / 100))]
@@ -1105,15 +1212,394 @@ def phase_server(dev, cfg, params, want):
         raise AssertionError("the HTTP server failed its checks")
 
 
+def layer_byte_us(params):
+    """Microseconds at 3.35 TB/s for one layer's weights of each GEMV phase
+    (int8 and scales, or bf16), beside the trace's time per phase."""
+    from kuiperllama_tpu_torch.params import param_bytes
+
+    b = params["blocks"]
+    L = b["attn_norm"].shape[0]
+    return {ph: param_bytes({"w": b[n]}) / L / HBM_BYTES_PER_S * 1e6
+            for ph, n in (("qkv", "wqkv"), ("wo", "wo"), ("gate_up", "w13"),
+                          ("w2", "w2"))}
+
+
+def time_big_step(cfg, params, x0, kc, vc, p, sin, cos, variants, plain_n):
+    """The big kernel's CUDA-event time over `variants`, its plain version's,
+    the byte bound and one traced launch's us per phase per layer."""
+    import torch
+
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
+
+    ms = gpu_ms(lambda v: fb.fused_decode_step_big(cfg, v, x0, kc, vc, p, sin, cos),
+                variants)
+    p_host = p.cpu()  # the plain version reads pos on the host
+    plain_ms = gpu_ms(lambda v: fb.fused_decode_step_big_ref(
+        cfg, v, x0, kc, vc, p_host, sin, cos), variants[:1], n=plain_n)
+    L = cfg.n_layers
+    trace = torch.zeros(2 + 5 * L, dtype=torch.int64, device=x0.device)
+    fb.fused_decode_step_big(cfg, params, x0, kc, vc, p, sin, cos, trace=trace)
+    phases = fd.phase_times(trace, L)
+    nbytes = fused_step_bytes(cfg, params, int(p.item()), 2)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = fused_step_ops(cfg, params) / PEAK_OPS_PER_S["bf16"] * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms, step_bytes=nbytes,
+                share_of_bound=max(bytes_ms, ops_ms) / ms,
+                traced_phase_us_per_layer={k: phases[k] / L for k in fd.PHASES},
+                phase_byte_us_per_layer=layer_byte_us(params),
+                traced_total_us=phases["total"])
+
+
+def phase_fused_big_kernel(dev):
+    """The big-model megakernel against its plain version on the card, at
+    full width and FUSED_LAYERS layers of each BIG_CASES geometry, one step
+    at pos 100 in a 256-slot window: errors, CUDA-event times of the kernel
+    and the plain version, the byte bound and us per phase from the trace."""
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
+    from kuiperllama_tpu_torch.ops.tuning import BIG_INT8
+
+    rows = []
+    for i, (label, preset, g, s_bf16) in enumerate(BIG_CASES):
+        cfg, params = fused_model(dev, preset, True, g, FUSED_LAYERS,
+                                  seed=SEED + 80 + i, s_bf16=s_bf16)
+        x0, full_k, full_v, A, p, sin, cos = fused_inputs(cfg, params, dev)
+        plan = fb.plan_big(params["blocks"], full_k.dtype, A)
+        check, _ = hold_fused(cfg, params, x0, full_k, full_v, A, p, sin, cos,
+                              "2 layers", kernel=fb.fused_decode_step_big,
+                              plain=fb.fused_decode_step_big_ref,
+                              flags=(BIG_INT8,) * 4)
+        times = time_big_step(cfg, params, x0, full_k[:, :A], full_v[:, :A], p,
+                              sin, cos, [params, _clone_blocks(params)], 5)
+        row = dict(phase="kernel", kernel="fused_decode_big", model=label,
+                   layers=FUSED_LAYERS, group_size=g,
+                   scales="bf16" if s_bf16 else "fp32", plan=plan, pos=FUSED_POS,
+                   window=A, **check, **times, card=CARD)
+        emit(row)
+        rows.append(row)
+        del params, full_k, full_v
+        if not (check["ok"] and plan is not None):
+            raise AssertionError(f"fused_decode_big disagrees with its plain "
+                                 f"version: {row}")
+    return rows
+
+
+def chunk_step_bytes(cfg, params, pos, steps, cache_itemsize):
+    """Bytes per step of a `steps`-step chunk from slot `pos`: one
+    megakernel step's (the K/V history grows by a row a step) plus the
+    lm_head and the next token's embedding row."""
+    from kuiperllama_tpu_torch.params import param_bytes
+
+    extra = param_bytes({"w": params["lm_head"]}) + 2 * cfg.dim
+    return sum(fused_step_bytes(cfg, params, pos + s, cache_itemsize) + extra
+               for s in range(steps)) / steps
+
+
+def hold_chunk(cfg, params, x0, full_k, full_v, A, p, sin, cos, steps, depth):
+    """The chunk kernel against its plain version on the card, each on its
+    own copy of the caches: the tokens equal up to a logit tie (at the first
+    difference the plain version's logits of the two tokens lie within
+    2e-3 of max(1, max|logit|) at 2 layers, within the depth's FUSED_TOL at
+    full depth; nothing after it is compared), the K/V rows of the steps up
+    to there within the depth's FUSED_TOL per layer, no other slot changed.
+    Returns the checks."""
+    import torch
+
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+
+    pos, L = int(p.item()), cfg.n_layers
+    kk, vk = full_k.clone(), full_v.clone()
+    got, _, _ = fd.fused_decode_chunk(cfg, params, x0, kk[:, :A], vk[:, :A], p,
+                                      sin, cos, steps)
+    got = got.tolist()
+    kr, vr = full_k.clone(), full_v.clone()
+    logits = []
+    want, _, _ = fd.fused_decode_chunk_ref(cfg, params, x0, kr[:, :A], vr[:, :A],
+                                           p.cpu(), sin, cos, steps, logits=logits)
+    want = want.tolist()
+    n = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), steps)
+    # tie limit relative to max(1, max|logit|): the CPU tests' 2e-3 at 2
+    # layers; at full depth x_final itself moves by 2-3% between two valid
+    # summation orders (the fused_step rows), so the rows' limit there
+    flags = fd.gemv_int8_flags(params["blocks"],
+                               fd.plan_tiles(params["blocks"], full_k.dtype, A))
+    lm_int8 = fd.lm_int8_activation(params["lm_head"], cfg.dim)
+    tol = FUSED_TOL[(depth, any(flags) or lm_int8)]
+    tie_tol = 2e-3 if depth == "2 layers" else tol
+    gap, tie_ok = None, True
+    if n < steps:
+        row = logits[n]
+        gap = abs(float(row[got[n]]) - float(row[want[n]])) / max(1.0, row.abs().max().item())
+        tie_ok = gap <= tie_tol
+    untouched = all(torch.equal(a[:, :pos], b[:, :pos])
+                    and torch.equal(a[:, pos + steps:], b[:, pos + steps:])
+                    for a, b in ((kk, full_k), (vk, full_v)))
+    rows = [(a[li, pos:pos + n + 1], b[li, pos:pos + n + 1])
+            for a, b in ((kk, kr), (vk, vr)) for li in range(L)]
+    err = max(rel_err(a, b) for a, b in rows)
+    abs_err = max((a.float() - b.float()).abs().max().item() for a, b in rows)
+    ok = (tie_ok and err <= tol and untouched and len(got) == steps
+          and all(0 <= t < cfg.vocab_size for t in got))
+    return dict(steps=steps, int8_activation=list(flags), lm_int8_activation=lm_int8,
+                tokens_kernel=got, tokens_plain=want,
+                first_differing_step=None if n == steps else n,
+                tie_logit_gap_rel=gap, tie_tol=tie_tol, tol=tol, rel_err_new_rows=err, max_abs_err=abs_err,
+                other_slots_untouched=untouched, ok=ok)
+
+
+def time_chunk(cfg, params, x0, kc, vc, p, sin, cos, steps, variants, plain_n):
+    """ms per step of the chunk kernel (CUDA events over launches of `steps`
+    steps), of its plain version, and the per-step byte bound."""
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+
+    ms = gpu_ms(lambda v: fd.fused_decode_chunk(cfg, v, x0, kc, vc, p, sin, cos,
+                                                steps), variants) / steps
+    p_host = p.cpu()
+    plain_ms = gpu_ms(lambda v: fd.fused_decode_chunk_ref(
+        cfg, v, x0, kc, vc, p_host, sin, cos, steps), variants[:1], n=plain_n) / steps
+    nbytes = chunk_step_bytes(cfg, params, int(p.item()), steps, 2)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    lm = params["lm_head"]
+    ops = fused_step_ops(cfg, params) + 2.0 * cfg.dim * lm.shape[-1]
+    ops_ms = ops / PEAK_OPS_PER_S["bf16"] * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms, step_bytes=nbytes,
+                share_of_bound=max(bytes_ms, ops_ms) / ms)
+
+
+def phase_fused_chunk_kernel(dev):
+    """The chunk kernel against its plain version on the card at full width
+    and FUSED_LAYERS layers of each CHUNK_CASES geometry, CHUNK_STEPS steps
+    from pos 100 in a 256-slot window; ms per step against the per-step
+    bound (the layer stack and the lm_head)."""
+    rows = []
+    for i, (label, preset, quantize, g) in enumerate(CHUNK_CASES):
+        cfg, params = fused_model(dev, preset, quantize, g, FUSED_LAYERS,
+                                  seed=SEED + 90 + i)
+        x0, full_k, full_v, A, p, sin, cos = fused_inputs(cfg, params, dev)
+        check = hold_chunk(cfg, params, x0, full_k, full_v, A, p, sin, cos,
+                           CHUNK_STEPS, "2 layers")
+        times = time_chunk(cfg, params, x0, full_k[:, :A], full_v[:, :A], p, sin,
+                           cos, CHUNK_STEPS, [params, _clone_blocks(params)], 2)
+        row = dict(phase="kernel", kernel="fused_decode_chunk", model=label,
+                   layers=FUSED_LAYERS, group_size=g,
+                   quant="int8" if quantize else "bf16", pos=FUSED_POS, window=A,
+                   **check, **times, card=CARD)
+        emit(row)
+        rows.append(row)
+        del params, full_k, full_v
+        if not check["ok"]:
+            raise AssertionError(f"fused_decode_chunk disagrees with its plain "
+                                 f"version: {row}")
+    return rows
+
+
+NO_LAUNCHES = dict.fromkeys(("quant_gemv", "quant_gemm", "fused_decode",
+                             "fused_decode_big", "fused_decode_chunk",
+                             "paged_attention"), 0)
+
+
+def zero_launches():
+    """Every kernel wrapper's launch count, set to 0."""
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+    from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
+
+    qm.quant_gemv.launches = qm.quant_gemm.launches = 0
+    fd.fused_decode_step.launches = fd.fused_decode_chunk.launches = 0
+    fb.fused_decode_step_big.launches = pa.paged_attention_flat.launches = 0
+
+
+def read_launches():
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+    from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
+
+    return {"quant_gemv": qm.quant_gemv.launches, "quant_gemm": qm.quant_gemm.launches,
+            "fused_decode": fd.fused_decode_step.launches,
+            "fused_decode_big": fb.fused_decode_step_big.launches,
+            "fused_decode_chunk": fd.fused_decode_chunk.launches,
+            "paged_attention": pa.paged_attention_flat.launches}
+
+
+def phase_big_main_path(dev):
+    """The big route at full width and depth: Llama-2-7B INT8 g 64 (bf16
+    scales, activations and cache, cache length 1024, random weights from a
+    seed) through Generator.generate_batch_ids under KT_FUSED_BIG=1, one
+    32-token prompt, 128 new tokens, greedy; launch counts zeroed just
+    before and read just after. The same weights on the layered route
+    beside it (its decode profile is the g 256 main path's), a decode
+    profile of the big route, then the big kernel alone at the main path's
+    shapes: held against its plain version on the CPU, timed, one launch
+    traced."""
+    import torch
+
+    from kuiperllama_tpu_torch.config import preset_config
+    from kuiperllama_tpu_torch.fuse import fuse_params
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
+    from kuiperllama_tpu_torch.ops.tuning import BIG_INT8
+    from kuiperllama_tpu_torch.params import param_bytes, random_params_device
+    from kuiperllama_tpu_torch.quant import cast_scales
+    from kuiperllama_tpu_torch.serving.generate import Generator
+
+    cfg = preset_config("llama2-7b", seq_len=CACHE_LEN)
+    t0 = time.perf_counter()
+    params = random_params_device(cfg, device=dev, seed=SEED, quantize=True,
+                                  group_size=64)
+    params = cast_scales(fuse_params(params), torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b = params["blocks"]
+    stream = [b["wqkv"], b["wo"], b["w13"], b["w2"], params["lm_head"]]
+    weight_bytes = sum(param_bytes({"w": w}) for w in stream)
+    floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    prompt = list(range(5, 5 + 32))
+    with knob("KT_FUSED_BIG"):
+        gen = Generator(cfg, params, cache_len=CACHE_LEN, cache_dtype=torch.bfloat16,
+                        chunk=128)
+        gen.generate_batch_ids([prompt], max_new_tokens=8)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launches()
+        rows, prefill_s, decode_s = gen.generate_batch_ids([prompt], max_new_tokens=128)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated(dev)
+        fused_ok = gen._fused_ok(1)
+        prof = profile_decode(cfg, params, gen, prompt, dev, fused=True,
+                              model="llama2-7b g64 big")
+    steps = len(rows[0]) - 1
+    ms_per_token = decode_s / steps * 1e3
+    expect = dict(NO_LAUNCHES, quant_gemv=1 + steps, quant_gemm=4 * cfg.n_layers,
+                  fused_decode_big=steps)
+    layered = Generator(cfg, params, cache_len=CACHE_LEN, cache_dtype=torch.bfloat16,
+                        chunk=128, fused_step=False)
+    rows_l, _, layered_s = layered.generate_batch_ids([prompt], 128)
+    first_diff = next((i for i, (a, c) in enumerate(zip(rows[0], rows_l[0]))
+                       if a != c), None)
+    in_vocab = all(0 <= t < cfg.vocab_size for t in rows[0])
+    ok = (len(rows[0]) == 128 and in_vocab and fused_ok and launches == expect)
+    busy = prof["device_busy_ms_per_step"]
+    emit(dict(phase="main_path", model="llama2-7b", quant="int8", group_size=64,
+              dtype="bf16", cache_len=CACHE_LEN, prompt_len=32, new_tokens=len(rows[0]),
+              route="big (KT_FUSED_BIG=1)", prefill_ms=prefill_s * 1e3,
+              decode_steps=steps, decode_ms_per_token=ms_per_token,
+              decode_tokens_per_s=steps / decode_s, weight_bytes_per_token=weight_bytes,
+              floor_ms_per_token=floor_ms, share_of_floor=floor_ms / ms_per_token,
+              layered_decode_ms_per_token=layered_s / (len(rows_l[0]) - 1) * 1e3,
+              layered_share_of_floor=floor_ms / (layered_s / (len(rows_l[0]) - 1) * 1e3),
+              first_token_differing_from_layered=first_diff,
+              launches_per_step_profiled=prof["kernels_per_step"],
+              device_busy_ms_per_step=busy,
+              device_idle_share_unprofiled=(1 - busy / ms_per_token
+                                            if isinstance(busy, float) else "not measured"),
+              peak_memory_bytes=peak, init_s=init_s, launches=launches,
+              launches_expected=expect, ok=ok, card=CARD))
+    if not ok:
+        raise AssertionError("Llama-2-7B big-route main path failed its checks")
+
+    x0, full_k, full_v, A, p, sin, cos = fused_inputs(cfg, params, dev)
+    check, _ = hold_fused(cfg, params, x0, full_k, full_v, A, p, sin, cos,
+                          "full depth", kernel=fb.fused_decode_step_big,
+                          plain=fb.fused_decode_step_big_ref,
+                          flags=(BIG_INT8,) * 4, held=("plain_cpu",))
+    times = time_big_step(cfg, params, x0, full_k[:, :A], full_v[:, :A], p, sin,
+                          cos, [params], 1)
+    step = dict(phase="fused_big_step", model="llama2-7b g64", layers=cfg.n_layers,
+                pos=FUSED_POS, window=A, **check, **times, card=CARD)
+    emit(step)
+    if not (check["ok"] and all(t > 0 for t in times["traced_phase_us_per_layer"].values())):
+        raise AssertionError("fused_decode_big disagrees with its plain version "
+                             "at full depth")
+    return launches, step
+
+
+def phase_chunk_main_path(dev, label, preset, quantize, per_step_row):
+    """One model of the chunk route at full width and depth through
+    Generator.generate_batch_ids under KT_FUSED_CHUNK=1 (64-step chunks, the
+    Generator's default), greedy, as the per-step route's main path
+    (`per_step_row`, whose numbers stand beside); then the chunk kernel alone
+    at the main path's shapes (CHUNK_STEPS steps from pos 100 of a 256-slot
+    window): held against its plain version on the card and timed."""
+    import torch
+
+    from kuiperllama_tpu_torch.params import param_bytes
+    from kuiperllama_tpu_torch.serving.generate import Generator
+
+    cfg, params = fused_model(dev, preset, quantize, 256)
+    b = params["blocks"]
+    stream = [b[n] for n in ("wqkv", "wo", "w13", "w2", "bqkv") if n in b]
+    weight_bytes = sum(param_bytes({"w": w}) for w in stream + [params["lm_head"]])
+    floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    prompt = list(range(5, 5 + 32))
+    with knob("KT_FUSED_CHUNK"):
+        gen = Generator(cfg, params, cache_len=CACHE_LEN, cache_dtype=torch.bfloat16)
+        gen.generate_batch_ids([prompt], max_new_tokens=8)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launches()
+        rows, prefill_s, decode_s = gen.generate_batch_ids([prompt], max_new_tokens=128)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated(dev)
+        prof = profile_decode(cfg, params, gen, prompt, dev, fused=True,
+                              model=f"{label} chunk")
+    steps = len(rows[0]) - 1
+    ms_per_token = decode_s / steps * 1e3
+    expect = dict(NO_LAUNCHES, quant_gemv=1 if quantize else 0,
+                  quant_gemm=4 * cfg.n_layers if quantize else 0,
+                  fused_decode_chunk=-(-steps // gen.chunk))
+    in_vocab = all(0 <= t < cfg.vocab_size for t in rows[0])
+    ok = len(rows[0]) == 128 and in_vocab and launches == expect
+    busy = prof["device_busy_ms_per_step"]
+    emit(dict(phase="main_path", model=label, quant="int8" if quantize else "bf16",
+              group_size=256 if quantize else None, dtype="bf16", cache_len=CACHE_LEN,
+              prompt_len=32, new_tokens=len(rows[0]), route="chunk (KT_FUSED_CHUNK=1)",
+              chunk=gen.chunk, prefill_ms=prefill_s * 1e3, decode_steps=steps,
+              decode_ms_per_token=ms_per_token, decode_tokens_per_s=steps / decode_s,
+              weight_bytes_per_token=weight_bytes, floor_ms_per_token=floor_ms,
+              share_of_floor=floor_ms / ms_per_token,
+              per_step_route_ms_per_token=per_step_row["decode_ms_per_token"],
+              per_step_route_device_idle_share=per_step_row["device_idle_share_unprofiled"],
+              launches_per_chunk_profiled=prof["kernels_per_step"] * prof["steps"],
+              device_busy_ms_per_step=busy,
+              device_idle_share_unprofiled=(1 - busy / ms_per_token
+                                            if isinstance(busy, float) else "not measured"),
+              peak_memory_bytes=peak, launches=launches, launches_expected=expect,
+              ok=ok, card=CARD))
+    if not ok:
+        raise AssertionError(f"{label} chunk-route main path failed its checks")
+
+    x0, full_k, full_v, A, p, sin, cos = fused_inputs(cfg, params, dev)
+    check = hold_chunk(cfg, params, x0, full_k, full_v, A, p, sin, cos,
+                       CHUNK_STEPS, "full depth")
+    times = time_chunk(cfg, params, x0, full_k[:, :A], full_v[:, :A], p, sin, cos,
+                       CHUNK_STEPS, [params], 1)
+    step = dict(phase="fused_chunk_step", model=label, layers=cfg.n_layers,
+                pos=FUSED_POS, window=A, **check, **times, card=CARD)
+    emit(step)
+    if not check["ok"]:
+        raise AssertionError(f"fused_decode_chunk disagrees with its plain version "
+                             f"at full depth ({label})")
+    return launches, step
+
+
 def _sum(rows, key):
     return sum(r[key] * n for r, n in rows)
 
 
-def kernels_line(gemv, gemm, fused_rows, fused_step, paged_rows, launches_by_path):
+def kernels_line(gemv, gemm, fused_rows, fused_step, paged_rows, launches_by_path,
+                 big_rows, big_step, chunk_rows, chunk_step):
     """One entry per kernel. `launches` is the count on the kernel's main
     path (Llama-2-7B for the GEMV and GEMM, TinyLlama-1.1B for the
-    megakernel, the Llama-2-7B engine for paged attention);
-    `launches_by_path` has every path's count."""
+    megakernel, the Llama-2-7B engine for paged attention, the Llama-2-7B
+    big route for the big-model megakernel, TinyLlama-1.1B's chunk route for
+    the chunk kernel); `launches_by_path` has every path's count."""
     from kuiperllama_tpu_torch.config import preset_config
 
     main_7b = launches_by_path["llama2-7b"]
@@ -1162,6 +1648,33 @@ def kernels_line(gemv, gemm, fused_rows, fused_step, paged_rows, launches_by_pat
         per="one Llama-2-7B B = 8 engine decode step: 32 launches, bf16 pools, "
             f"seq_lens {PAGED_LENS}, 128-token pages",
         launches_by_path=by_path("paged_attention"), card=CARD)
+    big = dict(
+        name="fused_decode_big", route="cuda",
+        source="kuiperllama_tpu_torch/csrc/fused_decode_big.cu",
+        replaces="kuiperllama_tpu/ops/pallas/fused_decode_big.py:147",
+        launches=launches_by_path["llama2-7b big"]["fused_decode_big"],
+        max_abs_err=max(r["max_abs_err"] for r in big_rows + [big_step]),
+        ms=big_step["ms"], plain_ms=big_step["plain_ms"], bound_ms=big_step["bound_ms"],
+        bound_by=big_step["bound_by"],
+        # no single PyTorch call computes a decode step of the layer stack
+        library_ms=None,
+        per="one Llama-2-7B decode step: 32 layers, INT8 g 64, bf16 scales and "
+            "cache, pos 100 in a 256-slot window",
+        launches_by_path=by_path("fused_decode_big"), card=CARD)
+    chunk = dict(
+        name="fused_decode_chunk", route="cuda",
+        source="kuiperllama_tpu_torch/csrc/fused_decode_chunk.cu",
+        replaces="kuiperllama_tpu/ops/pallas/fused_decode.py:627",
+        launches=launches_by_path["tinyllama-1.1b chunk"]["fused_decode_chunk"],
+        max_abs_err=max(r["max_abs_err"] for r in chunk_rows + [chunk_step]),
+        ms=chunk_step["ms"], plain_ms=chunk_step["plain_ms"],
+        bound_ms=chunk_step["bound_ms"], bound_by=chunk_step["bound_by"],
+        # no single PyTorch call computes greedy decode steps
+        library_ms=None,
+        per=f"one TinyLlama-1.1B greedy step of a {CHUNK_STEPS}-step chunk: 22 "
+            "layers and the lm_head, INT8 g 256, bf16 scales and cache, from "
+            "pos 100 in a 256-slot window",
+        launches_by_path=by_path("fused_decode_chunk"), card=CARD)
     return {"kernels": [
         entry("quant_gemv", gemv, "kuiperllama_tpu/ops/pallas/quant_matmul.py:202",
               "one Llama-2-7B decode token: 32 x (wqkv, wo, w13, w2) + lm_head, "
@@ -1171,6 +1684,8 @@ def kernels_line(gemv, gemm, fused_rows, fused_step, paged_rows, launches_by_pat
               "fast, g 256, bf16"),
         fused,
         paged,
+        big,
+        chunk,
     ]}
 
 
@@ -1183,6 +1698,7 @@ def main() -> int:
         return 2
     from kuiperllama_tpu_torch.ops.kernels import build
     from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
     from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
     from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
 
@@ -1196,27 +1712,36 @@ def main() -> int:
               nvidia_smi=CARD, torch=torch.__version__, cuda=torch.version.cuda))
 
     t0 = time.perf_counter()
-    built = build.build([qm.GEMV_SOURCE, qm.GEMM_SOURCE, fd.SOURCE, pa.SOURCE])
+    built = build.build([qm.GEMV_SOURCE, qm.GEMM_SOURCE, fd.SOURCE, pa.SOURCE,
+                         fb.SOURCE, fd.CHUNK_SOURCE])
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               per_source_s=built, flags=" ".join(build.NVCC_FLAGS)))
 
     gemv, gemm = phase_kernels(dev)
     fused_rows = phase_fused_kernel(dev)
+    big_rows = phase_fused_big_kernel(dev)
+    chunk_rows = phase_fused_chunk_kernel(dev)
     paged_rows = phase_paged_kernel(dev)
     phase_fixture(dev)
     fixture_cfg, fixture_params, fixture_tokens = phase_engine_fixture(dev)
     launches = {"llama2-7b": phase_main_path(dev)}
-    launches["tinyllama-1.1b"], fused_step = phase_fused_main_path(
+    launches["llama2-7b big"], big_step = phase_big_main_path(dev)
+    launches["tinyllama-1.1b"], fused_step, tl_row = phase_fused_main_path(
         dev, "tinyllama-1.1b", "tinyllama-1.1b", True)
-    launches["qwen2.5-0.5b"], qwen_step = phase_fused_main_path(
+    launches["qwen2.5-0.5b"], qwen_step, qw_row = phase_fused_main_path(
         dev, "qwen2.5-0.5b", "qwen2.5-0.5b", False)
+    launches["tinyllama-1.1b chunk"], chunk_step = phase_chunk_main_path(
+        dev, "tinyllama-1.1b", "tinyllama-1.1b", True, tl_row)
+    launches["qwen2.5-0.5b chunk"], qwen_chunk_step = phase_chunk_main_path(
+        dev, "qwen2.5-0.5b", "qwen2.5-0.5b", False, qw_row)
     launches["engine llama2-7b"], _, _ = phase_engine_main_path(
         dev, "llama2-7b", "llama2-7b")
     launches["engine tinyllama-1.1b"], _, _ = phase_engine_main_path(
         dev, "tinyllama-1.1b", "tinyllama-1.1b", prefill_chunk=256, long_prompt=768)
     phase_server(dev, fixture_cfg, fixture_params, fixture_tokens)
     emit(kernels_line(gemv, gemm, fused_rows + [fused_step, qwen_step],
-                      fused_step, paged_rows, launches))
+                      fused_step, paged_rows, launches, big_rows, big_step,
+                      chunk_rows + [qwen_chunk_step], chunk_step))
     print(CARD, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
-`_build/lib<name>-<hash>.so` for sm_90a; the hash covers the source and the
-flags, so an edited source rebuilds and an unchanged one is reused. Nothing
+`_build/lib<name>-<hash>.so` for sm_90a; the hash covers the source, the
+shared headers (`csrc/*.cuh`) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused. Nothing
 is built when the package is imported: a kernel's library is built at its
 first launch, or ahead of time by `build()`, which starts one nvcc per
 source, all at once.
@@ -37,9 +38,13 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library of `csrc/<name>.cu`, named by a hash of the source, every
+    `csrc/*.cuh` header (any source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names) -> dict:

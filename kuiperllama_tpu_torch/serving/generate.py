@@ -9,10 +9,21 @@ kuiperllama_tpu/serving/generate.py.
   * the prompt is padded to `_bucket` rows and the attention window to
     `_bucket_len` slots, as in the JAX package, so row counts, and with them
     the INT8 kernel routes, are the same on both sides;
-  * at B = 1 a model whose layer fits the megakernel's plan (TinyLlama-1.1B,
-    Llama-3.2-1B, Qwen2.5-0.5B; not Llama-2-7B) decodes each step through
-    ops/kernels/fused_decode.py: one launch for the whole layer stack, then
-    the lm_head and the sampling glue, as the JAX Generator does.
+  * at B = 1 the decode step takes one of three megakernels, chosen per
+    chunk as the JAX `decode_chunk` chooses (the KT_* knobs of
+    ops/tuning.py):
+      - a model whose layer fits the small plan (TinyLlama-1.1B,
+        Llama-3.2-1B, Qwen2.5-0.5B) takes ops/kernels/fused_decode.py: one
+        launch for the layer stack per step, then the lm_head and the
+        sampling glue;
+      - with KT_FUSED_CHUNK=1 and greedy sampling, such a model takes the
+        chunk megakernel instead: one launch for all the chunk's steps,
+        lm_head and argmax included;
+      - with KT_FUSED_BIG=1 a model beyond the small plan whose layer fits
+        the big plan (Llama-2-7B and Llama-3-8B at group 64, or with fp32
+        scales) takes ops/kernels/fused_decode_big.py per step, then the
+        lm_head; without it, and at group 256 with bf16 scales, such a
+        model decodes layered.
 """
 
 from __future__ import annotations
@@ -26,7 +37,10 @@ import torch
 
 from ..config import ModelConfig
 from ..models import decoder
-from ..ops.kernels.fused_decode import fits_vmem, fused_decode_step
+from ..ops import tuning
+from ..ops.kernels.fused_decode import (fits_vmem, fused_decode_chunk,
+                                        fused_decode_step)
+from ..ops.kernels.fused_decode_big import fits_vmem_big, fused_decode_step_big
 from ..ops.linear import linear
 from ..ops.sampling import sample_token
 
@@ -51,17 +65,27 @@ def _stop_array(stop_ids, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def _fused_logits(cfg: ModelConfig, params, token, pos, cache, rope):
-    """One B = 1 decode step through the megakernel: the embedding row, one
-    launch for the layer stack (the new K/V rows land in the cache in
-    place), then the lm_head in fp32 logits."""
+def _flat_cache(cache):
+    """[L, A, KH*hd] views of a B = 1 (windowed) cache: the megakernels
+    write through them."""
     L, _, A, KH, hd = cache["k"].shape
+    return cache["k"].view(L, A, KH * hd), cache["v"].view(L, A, KH * hd)
+
+
+def _fused_logits(cfg: ModelConfig, params, token, pos, cache, rope,
+                  big=False):
+    """One B = 1 decode step through a per-step megakernel (the big-model
+    one when `big`): the embedding row, one launch for the layer stack (the
+    new K/V rows land in the cache in place), then the lm_head in fp32
+    logits."""
     x0 = params["tok_emb"][token.long()]  # [1, d]
-    # views of the (windowed) cache: the kernel writes through them
-    kc = cache["k"].view(L, A, KH * hd)
-    vc = cache["v"].view(L, A, KH * hd)
-    x_fin, _, _ = fused_decode_step(cfg, params, x0, kc, vc, pos, *rope)
+    step = fused_decode_step_big if big else fused_decode_step
+    x_fin, _, _ = step(cfg, params, x0, *_flat_cache(cache), pos, *rope)
     return linear(x_fin, params["lm_head"]).float()
+
+
+def _greedy(temperature: float, top_k: int, top_p: float) -> bool:
+    return temperature <= 0.0 and top_k == 0 and top_p >= 1.0
 
 
 def decode_chunk(cfg: ModelConfig, params, token, pos, kv_cache, done,
@@ -75,9 +99,14 @@ def decode_chunk(cfg: ModelConfig, params, token, pos, kv_cache, done,
     active_len: cap on the cache slots attention reads this chunk (0 = all).
       The window is a view of the cache, so the steps' in-place writes land
       in the full cache and need no write-back.
-    fused: take the B = 1 decode megakernel; the chunk leaves it for the
-      layered path when its window outgrows the plan (as the JAX
-      `decode_chunk` does).
+    fused: take a B = 1 decode megakernel. The chunk re-checks the plans
+      for its own window, as the JAX `decode_chunk` does: the small plan
+      first, then under KT_FUSED_BIG=1 the big one; when neither fits it
+      decodes layered. With the small plan, greedy sampling and
+      KT_FUSED_CHUNK=1 the whole chunk is one launch of the chunk kernel;
+      finished rows are then not frozen inside the chunk and pos moves by
+      `steps` (the host truncates at the first stop token, as with the
+      other routes).
     drop_past_end: a position at or past the window drops its cache write
       (decoder.forward); False promises that no row gets there.
     Returns (tokens int32 [B, steps], token, pos, kv_cache, done), all on
@@ -88,16 +117,26 @@ def decode_chunk(cfg: ModelConfig, params, token, pos, kv_cache, done,
     if active_len and active_len < S:
         cache = dict(k=kv_cache["k"][:, :, :active_len],
                      v=kv_cache["v"][:, :, :active_len])
+    small = big = False
     if fused:
         if rope is None:
             rope = decoder.build_rope(cfg, token.device)
-        fused = fits_vmem(params["blocks"], kv_cache["k"].dtype,
-                          cache["k"].shape[2])
+        blocks, dt, alen = params["blocks"], kv_cache["k"].dtype, cache["k"].shape[2]
+        small = fits_vmem(blocks, dt, alen)
+        big = (not small and tuning.fused_big_on()
+               and fits_vmem_big(blocks, dt, alen))
+        fused = small or big
+    if small and _greedy(temperature, top_k, top_p) and tuning.fused_chunk_on():
+        x0 = params["tok_emb"][token.long()]  # [1, d]
+        toks1, _, _ = fused_decode_chunk(cfg, params, x0, *_flat_cache(cache),
+                                         pos, *rope, steps)
+        done = done | (toks1[:, None] == stop_ids[None, :]).any()
+        return toks1[None], toks1[-1:], pos + steps, kv_cache, done
     toks = torch.empty((token.shape[0], steps), dtype=torch.int32,
                        device=token.device)
     for i in range(steps):
         if fused:
-            logits = _fused_logits(cfg, params, token, pos, cache, rope)
+            logits = _fused_logits(cfg, params, token, pos, cache, rope, big)
         else:
             logits, _ = decoder.decode_step(cfg, params, token, pos, cache,
                                             rope=rope, drop_past_end=drop_past_end)
@@ -130,10 +169,10 @@ class Generator:
     """Single- and batched-request generation over a dense KV cache, on the
     device that holds `params`.
 
-    fused_step: the B = 1 decode megakernel. None (auto) takes it when the
-    params lie on a CUDA device and the model fits the plan; True forces it
-    (on the CPU that runs its plain version, as the tests do); False turns
-    it off."""
+    fused_step: the B = 1 decode megakernels. None (auto) takes them when
+    the params lie on a CUDA device and the model fits a plan
+    (KT_FUSED_STEP=0/1 overrides auto); True forces them (on the CPU that
+    runs their plain versions, as the tests do); False turns them off."""
 
     def __init__(self, cfg: ModelConfig, params, tokenizer=None,
                  cache_len: Optional[int] = None, cache_dtype=torch.float32,
@@ -149,17 +188,23 @@ class Generator:
         self.rope = decoder.build_rope(cfg, self.device)
 
     def _fused_ok(self, B: int) -> bool:
-        """Whether decode takes the megakernel: B = 1, fused weights and a
-        plan that fits at the smallest window (each chunk re-checks its own
-        window in `decode_chunk`)."""
+        """Whether decode takes a megakernel: B = 1, fused weights and a plan
+        that fits at the smallest window, the big plan only under
+        KT_FUSED_BIG=1 (each chunk re-checks its own window in
+        `decode_chunk`)."""
         if B != 1 or self.fused_step is False:
             return False
         blocks = self.params["blocks"]
         alen = min(_bucket_len(1), self.cache_len)
-        structural = "wqkv" in blocks and fits_vmem(blocks, self.cache_dtype,
-                                                    alen)
+        structural = "wqkv" in blocks and (
+            fits_vmem(blocks, self.cache_dtype, alen)
+            or (tuning.fused_big_on()
+                and fits_vmem_big(blocks, self.cache_dtype, alen)))
         if self.fused_step is True:
             return structural
+        env = tuning.fused_step_env()
+        if env is not None:
+            return structural and env
         return structural and self.device.type == "cuda"
 
     def generate_batch_ids(

@@ -58,16 +58,22 @@ ROOT = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
 QUANT_NAMES = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
 
 
-def _jax_params(cfg, quant, g, seed=5):
-    """bf16 JAX params; quantized weights with scale rows padded to 16."""
-    params = jto(jrandom(cfg, seed=seed), dtype=jnp.bfloat16)
+def _jax_params(cfg, quant, g, seed=5, dtype=jnp.bfloat16, lm_quant=False):
+    """JAX params in `dtype` (bf16 by default); quantized weights (and the
+    lm_head when `lm_quant`) with scale rows padded to 16."""
+    params = jto(jrandom(cfg, seed=seed), dtype=dtype)
+
+    def q(w):
+        qa = jq80(w, group_size=g)
+        return QuantArray(q=qa.q, s=pad_scale_rows(qa.s, 16), group_size=g)
+
     if quant:
         blocks = dict(params["blocks"])
         for name in QUANT_NAMES:
-            qa = jq80(blocks[name], group_size=g)
-            blocks[name] = QuantArray(q=qa.q, s=pad_scale_rows(qa.s, 16),
-                                      group_size=g)
+            blocks[name] = q(blocks[name])
         params = dict(params, blocks=blocks)
+    if lm_quant:
+        params = dict(params, lm_head=q(params["lm_head"]))
     return jfuse(params)
 
 

@@ -182,3 +182,34 @@ def test_gemm_split_plan(M, K, N):
     assert splits == 1 or kps >= 128
     tiles = -(-N // 64) * -(-M // 64)
     assert tiles * splits >= min(4 * 132, tiles * (K // 128)) // 2
+
+
+def test_library_name_covers_every_header(tmp_path, monkeypatch):
+    """A kernel's library is named by a hash of its source, every csrc/*.cuh
+    header and the flags: an edited or added header rebuilds every source,
+    unchanged files keep the name."""
+    from kuiperllama_tpu_torch.ops.kernels import build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "common.cuh"\n')
+    (csrc / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    first = build.lib_path("k")
+    assert build.lib_path("k") == first
+    (csrc / "common.cuh").write_text("// v2\n")
+    edited = build.lib_path("k")
+    assert edited != first
+    (csrc / "more.cuh").write_text("// new\n")
+    assert build.lib_path("k") not in (first, edited)
+    (csrc / "more.cuh").unlink()
+    assert build.lib_path("k") == edited
+
+
+def test_megakernel_sources_share_one_header():
+    from kuiperllama_tpu_torch.ops.kernels import build
+
+    for name in ("fused_decode", "fused_decode_big", "fused_decode_chunk"):
+        assert '#include "fused_decode_common.cuh"' in (
+            build.CSRC / f"{name}.cu").read_text()

@@ -287,6 +287,198 @@ def test_fused_decode_rejects_bad_input(dev):
 
 
 # ---------------------------------------------------------------------------
+# The big-model megakernel (csrc/fused_decode_big.cu) against its plain
+# version: x_final and the new K/V rows to 1e-2 of max|plain|, as the small
+# kernel. Its plan needs d / g to be a multiple of 16 (the JAX package's
+# padded scale rows): dim 512 at g 32.
+
+
+def _big_case(dev, family, s_bf16, g=32, L=2, dim=512, hidden=512, heads=4,
+              kv_heads=2):
+    return _fused_case(dev, family, "int8_bf16s" if s_bf16 else "int8", g, L=L,
+                       dim=dim, hidden=hidden, heads=heads, kv_heads=kv_heads)
+
+
+@pytest.mark.parametrize("family,s_bf16", [("llama2", True), ("llama2", False),
+                                           ("qwen2", True)])
+@pytest.mark.parametrize("int8_a", [True, False])
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pos", [0, 37, 255])
+def test_fused_big_matches_plain(dev, family, s_bf16, int8_a, cache, pos):
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
+
+    cfg, params = _big_case(dev, family, s_bf16)
+    assert fb.plan_big(params["blocks"], cache, 256) is not None
+    kernel = lambda *a: fb.fused_decode_step_big(*a, int8_a=int8_a)
+    plain = lambda *a: fb.fused_decode_step_big_ref(*a, int8_a=int8_a)
+    before = fb.fused_decode_step_big.launches
+    x, k, v = _fused_run(cfg, params, dev, pos, 256, 512, cache, kernel)
+    torch.cuda.synchronize()
+    assert fb.fused_decode_step_big.launches == before + 1
+    xr, kr, vr = _fused_run(cfg, params, dev, pos, 256, 512, cache, plain)
+    assert x.dtype == xr.dtype and x.shape == xr.shape
+    assert torch.isfinite(x.float()).all()
+    assert _rel(x, xr) <= 1e-2
+    for got, want in ((k, kr), (v, vr)):
+        assert torch.equal(got[:, :pos], want[:, :pos])
+        assert torch.equal(got[:, pos + 1:], want[:, pos + 1:])
+        assert _rel(got[:, pos], want[:, pos]) <= 1e-2
+    x2, k2, _ = _fused_run(cfg, params, dev, pos, 256, 512, cache, kernel)
+    assert torch.equal(x2, x) and torch.equal(k2, k)
+
+
+@pytest.mark.parametrize("g", [64, 128])
+def test_fused_big_wide(dev, g):
+    """TinyLlama-1.1B width (d / g = 32 and 16), held to the plain version
+    run on the CPU, as the small kernel's full-width test."""
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
+
+    cfg, params = _big_case(dev, "llama2", True, g=g, dim=2048, hidden=5632,
+                            heads=32, kv_heads=4)
+    x, k, v = _fused_run(cfg, params, dev, 100, 256, 512, torch.bfloat16,
+                         fb.fused_decode_step_big)
+    cpu = torch.device("cpu")
+    xr, kr, vr = _fused_run(cfg, _to_cpu(params), cpu, 100, 256, 512,
+                            torch.bfloat16, fb.fused_decode_step_big_ref)
+    assert _rel(x.cpu(), xr) <= 1e-2
+    assert _rel(k[:, 100].cpu(), kr[:, 100]) <= 1e-2
+    assert _rel(v[:, 100].cpu(), vr[:, 100]) <= 1e-2
+
+
+def test_fused_big_trace_and_rejects(dev):
+    from kuiperllama_tpu_torch.models import decoder
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
+
+    cfg, params = _big_case(dev, "llama2", True)
+    L = cfg.n_layers
+    trace = torch.zeros(2 + 5 * L, dtype=torch.int64, device=dev)
+    traced = lambda *a: fb.fused_decode_step_big(*a, trace=trace)
+    x, _, _ = _fused_run(cfg, params, dev, 37, 256, 512, torch.bfloat16, traced)
+    x0, _, _ = _fused_run(cfg, params, dev, 37, 256, 512, torch.bfloat16,
+                          fb.fused_decode_step_big)
+    assert torch.equal(x, x0)
+    t = trace.cpu()
+    assert bool((t[1:] >= t[:-1]).all()) and fd.phase_times(trace, L)["total"] > 0
+    # dense weights have no big plan
+    dcfg, dense = _fused_case(dev, "llama2", "bf16", 0, dim=512)
+    sin, cos = decoder.build_rope(dcfg, dev)
+    kc = torch.zeros((dcfg.n_layers, 256, dcfg.kv_dim), device=dev)
+    p = torch.tensor([3], dtype=torch.int32, device=dev)
+    x0 = dense["tok_emb"][torch.tensor([5], device=dev)]
+    with pytest.raises(ValueError):
+        fb.fused_decode_step_big(dcfg, dense, x0, kc, kc.clone(), p, sin, cos)
+    x0 = params["tok_emb"][torch.tensor([5], device=dev)]
+    with pytest.raises(TypeError):  # pos of the wrong type
+        fb.fused_decode_step_big(cfg, params, x0, kc, kc.clone(), p.long(), sin, cos)
+
+
+# ---------------------------------------------------------------------------
+# The greedy chunk megakernel (csrc/fused_decode_chunk.cu) against its plain
+# version on the card: the tokens equal up to an exact logit tie (at the
+# first difference the plain version's logits of the two tokens lie within
+# 2e-3 of max(1, max|logit|), and nothing after it is compared), and the K/V
+# rows of the steps before it to 1e-2 of max|plain| per layer.
+
+
+def _chunk_case(dev, family, kind, g, lm_quant, **dims):
+    from kuiperllama_tpu_torch.quant import cast_scales, quantize_q80
+
+    cfg, params = _fused_case(dev, family, kind, g, **dims)
+    if lm_quant:
+        lm = quantize_q80(params["lm_head"].float(), group_size=g)
+        if kind == "int8_bf16s":
+            lm = cast_scales(lm, torch.bfloat16)
+        params = dict(params, lm_head=lm)
+    return cfg, params
+
+
+def _chunk_run(cfg, params, dev, pos, steps, cache_dtype, fn, **kw):
+    from kuiperllama_tpu_torch.models import decoder
+
+    gen = torch.Generator(device="cpu").manual_seed(pos)
+    L, KV = cfg.n_layers, cfg.kv_dim
+    full_k = torch.randn((L, 512, KV), generator=gen).to(dev, cache_dtype)
+    full_v = torch.randn((L, 512, KV), generator=gen).to(dev, cache_dtype)
+    sin, cos = (t.to(dev) for t in decoder.build_rope(cfg, "cpu"))
+    x0 = params["tok_emb"][torch.tensor([5], device=dev)]
+    p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    toks, _, _ = fn(cfg, params, x0, full_k[:, :256], full_v[:, :256], p, sin,
+                    cos, steps, **kw)
+    return toks.cpu().tolist(), full_k, full_v
+
+
+def _hold_chunk(cfg, params, dev, pos, steps, cache_dtype):
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+
+    before = fd.fused_decode_chunk.launches
+    got, k, v = _chunk_run(cfg, params, dev, pos, steps, cache_dtype,
+                           fd.fused_decode_chunk)
+    torch.cuda.synchronize()
+    assert fd.fused_decode_chunk.launches == before + 1
+    logits = []
+    want, kr, vr = _chunk_run(cfg, params, dev, pos, steps, cache_dtype,
+                              fd.fused_decode_chunk_ref, logits=logits)
+    assert len(got) == steps and all(0 <= t < cfg.vocab_size for t in got)
+    n = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), steps)
+    if n < steps:
+        row = logits[n]
+        gap = abs(float(row[got[n]]) - float(row[want[n]]))
+        assert gap <= 2e-3 * max(1.0, row.abs().max().item()), (n, got, want)
+    for got_c, want_c in ((k, kr), (v, vr)):
+        assert torch.equal(got_c[:, :pos], want_c[:, :pos])
+        assert torch.equal(got_c[:, pos + steps:], want_c[:, pos + steps:])
+        for li in range(cfg.n_layers):
+            # rows up to the first differing token came from the same tokens
+            assert _rel(got_c[li, pos:pos + n + 1], want_c[li, pos:pos + n + 1]) <= 1e-2
+    return got
+
+
+@pytest.mark.parametrize("family,kind,g,lm_quant", [
+    ("llama2", "int8", 32, True), ("llama2", "int8_bf16s", 64, True),
+    ("llama2", "int8", 8, True), ("qwen2", "int8", 32, False),
+    ("qwen2", "bf16", 0, False), ("qwen2", "fp32", 0, False),
+])
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pos", [0, 37, 240])
+def test_fused_chunk_matches_plain(dev, family, kind, g, lm_quant, cache, pos):
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+
+    cfg, params = _chunk_case(dev, family, kind, g, lm_quant)
+    got = _hold_chunk(cfg, params, dev, pos, 16, cache)
+    again, _, _ = _chunk_run(cfg, params, dev, pos, 16, cache, fd.fused_decode_chunk)
+    assert again == got  # fixed-order reductions: the same tokens every run
+
+
+def test_fused_chunk_int8_lm_head(dev):
+    """dim 512 at g 16: the lm_head's 32 group rows take the int8
+    activation in the chunk kernel."""
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+
+    cfg, params = _chunk_case(dev, "llama2", "int8", 16, True, dim=512)
+    assert fd.lm_int8_activation(params["lm_head"], cfg.dim)
+    _hold_chunk(cfg, params, dev, 37, 16, torch.bfloat16)
+
+
+def test_fused_chunk_rejects_bad_input(dev):
+    from kuiperllama_tpu_torch.models import decoder
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+
+    cfg, params = _chunk_case(dev, "llama2", "int8", 32, True)
+    sin, cos = decoder.build_rope(cfg, dev)
+    x0 = params["tok_emb"][torch.tensor([5], device=dev)]
+    kc = torch.zeros((cfg.n_layers, 256, cfg.kv_dim), device=dev)
+    p = torch.tensor([3], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # an lm_head on the CPU
+        lm = params["lm_head"]
+        fd.fused_decode_chunk(cfg, dict(params, lm_head=lm.__class__(
+            q=lm.q.cpu(), s=lm.s.cpu(), group_size=lm.group_size)), x0, kc,
+            kc.clone(), p, sin, cos, 4)
+    with pytest.raises(ValueError):  # no steps
+        fd.fused_decode_chunk(cfg, params, x0, kc, kc.clone(), p, sin, cos, 0)
+
+
+# ---------------------------------------------------------------------------
 # The paged flash-decode kernel (csrc/paged_attention.cu) against its plain
 # version. The normalised output acc / l is held relative to max|plain|: fp32
 # pools 1e-6; bf16 pools 1e-3 (p is rounded to bf16 before the pv product on

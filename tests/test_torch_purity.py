@@ -92,3 +92,15 @@ def test_fresh_interpreter_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_scan_covers_the_megakernel_routes():
+    """The big-model and chunk megakernel routes and the knob table are
+    scanned; the route knobs (KT_*) are read in ops/tuning.py and nowhere
+    else in the port."""
+    scanned = {f.relative_to(PKG).as_posix() for f, _ in _port_sources()}
+    assert {"ops/tuning.py", "ops/kernels/fused_decode.py",
+            "ops/kernels/fused_decode_big.py", "serving/generate.py"} <= scanned
+    readers = {f.relative_to(PKG).as_posix() for f, _ in _port_sources()
+               if "environ" in f.read_text() and "KT_" in f.read_text()}
+    assert readers == {"ops/tuning.py"}
