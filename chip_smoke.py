@@ -8,6 +8,18 @@ last line:
   1. device: the card's name, power limit and count; fails without CUDA.
   2. build: nvcc builds every kernel of the path from csrc/, one process
      per source, all at once.
+  2b. tools: the kernel-measurement tools (kuiperllama_tpu_torch/tools): the
+     roofline probes (HBM read, decode GEMV weight stream in bf16 and int8,
+     bf16 tensor-core matmul) at their default sizes; the three tool kernels
+     held against their plain versions and timed beside their bounds:
+     exp_stream at the five TinyLlama-1.1B shapes over the JAX tool's tiles
+     that divide them (equal), exp_outscale and the GEMM (exp_kernel's
+     `current`) there at M = 8 (within 2^-7; yardstick bf16 x @ the
+     pre-dequantized weight), exp_int8 in its six modes held at L 2 and on
+     the tool's own L 64 stack (1e-5, nodot equal) and timed there; the GEMM
+     at bench_kernels' shapes (Llama-2-7B, M = 8, g 64, fp32 scales); then
+     the tools' entry points (exp_kernel, exp_int8, bench_kernels at
+     Llama-2-7B M = 8, kernel and torch variants) with exact launch counts.
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the Llama-2-7B main-path shapes, with CUDA-event times (median of 25
      launches) of the kernel, the plain version and one library call
@@ -108,19 +120,16 @@ FUSED_TOL.
 
 import contextlib
 import json
-import math
 import os
-import statistics
-import subprocess
 import sys
 import time
 import traceback
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}  # dense; fp32 off the tensor cores
+# dense; fp32 off the tensor cores
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 TOL = {"fast": 1e-3, "exact": 1e-5}
 BF16_ULP = 2.0 ** -7
-L2_BYTES = 50 * 2 ** 20
 SEED = 0
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = "checkpoints/tinychar/tinychar.q8.bin"
@@ -205,37 +214,6 @@ def knob(name):
             os.environ[name] = old
 
 
-def nvidia_smi_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
-
-
-def gpu_ms(fn, variants, n=25):
-    """Median device time of `fn(v)` over n launches, by CUDA events.
-
-    The stream is first held by a spin kernel so that the host queues all n
-    launches before the first runs: the events then time the device alone,
-    not the Python that launches it. `variants` rotate copies of the
-    operands, so the weights do not sit in L2 between launches, as they do
-    not in a decode step that streams gigabytes between two reads of one
-    weight."""
-    import torch
-
-    fn(variants[0])
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
-    torch.cuda._sleep(100_000_000)
-    for i, (a, b) in enumerate(events):
-        a.record()
-        fn(variants[i % len(variants)])
-        b.record()
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in events)
-
-
 def bound(M, K, N, g, x_bytes, s_bytes, out_bytes, ops_type):
     """(bytes_ms, ops_ms): the bytes the function must move (each input read
     once, each output written once) over HBM bandwidth, and its operations
@@ -262,12 +240,15 @@ def rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-def check_kernel(kind, dev, M, K, N, g, mode, seed, name=""):
-    """One shape: correctness at fp32 and at the main path's bf16 dtypes,
-    then times at the main path's dtypes (bf16 x, bf16 scales)."""
+def check_kernel(kind, dev, M, K, N, g, mode, seed, name="", scales="bfloat16"):
+    """One shape: correctness at fp32 and at the path's dtypes (bf16 x,
+    `scales` scales: bfloat16 on the decode path, float32 in bench_kernels), then
+    times at the path's dtypes. Times rotate weight copies past L2, as a
+    decode step streams gigabytes between two reads of one weight."""
     import torch
 
     from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
+    from kuiperllama_tpu_torch.utils.profiling import device_time, l2_copies
 
     if kind == "quant_gemv":
         kernel = lambda x, q, s: qm.quant_gemv(x, q, s, g)
@@ -278,7 +259,7 @@ def check_kernel(kind, dev, M, K, N, g, mode, seed, name=""):
 
     x, q, s = operands(dev, M, K, N, g, seed)
     err32 = rel_err(kernel(x, q, s), plain(x, q, s))
-    xb, sb = x.to(torch.bfloat16), s.to(torch.bfloat16)
+    xb, sb = x.to(torch.bfloat16), s.to(getattr(torch, scales))
     got, want = kernel(xb, q, sb), plain(xb, q, sb)
     torch.cuda.synchronize()
     err16 = rel_err(got, want)
@@ -286,20 +267,19 @@ def check_kernel(kind, dev, M, K, N, g, mode, seed, name=""):
     ok = (err32 <= TOL[mode] and err16 <= BF16_ULP
           and bool(torch.isfinite(got).all()))
 
-    copies = max(1, math.ceil(2 * L2_BYTES / (K * N)))
-    qs = [q] + [q.clone() for _ in range(copies - 1)]
+    qs = [q] + [q.clone() for _ in range(l2_copies(K * N, dev) - 1)]
     variants = [(xb, qc, sb) for qc in qs]
-    ms = gpu_ms(lambda v: kernel(*v), variants)
-    plain_ms = gpu_ms(lambda v: plain(*v), variants)
+    ms = device_time(kernel, variants=variants, device="cuda") * 1e3
+    plain_ms = device_time(plain, variants=variants, device="cuda") * 1e3
     wd = qm.dequantize_bf16(q, sb, g)
-    lib_copies = max(1, math.ceil(2 * L2_BYTES / (2 * K * N)))
-    lib_variants = [(xb, wd)] + [(xb, wd.clone()) for _ in range(lib_copies - 1)]
-    library_ms = gpu_ms(lambda v: v[0] @ v[1], lib_variants)
-    bytes_ms, ops_ms = bound(M, K, N, g, 2, 2, 2,
+    lib_variants = [(xb, wd)] + [(xb, wd.clone())
+                                 for _ in range(l2_copies(2 * K * N, dev) - 1)]
+    library_ms = device_time(torch.matmul, variants=lib_variants, device="cuda") * 1e3
+    bytes_ms, ops_ms = bound(M, K, N, g, 2, sb.element_size(), 2,
                              "bf16" if mode == "fast" else "fp32")
     del qs, variants, wd, lib_variants
     row = dict(phase="kernel", kernel=kind, weight=name, M=M, K=K, N=N, g=g,
-               mode=mode,
+               mode=mode, scales=scales,
                rel_err_fp32_out=err32, rel_err_bf16_out=err16,
                max_abs_err=abs16, ok=ok, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
@@ -524,12 +504,14 @@ def chunk_kernel_events():
 
 
 def device_profile(run):
-    """`run()` under torch.profiler: ({kernel name: (device ms, launches)},
-    wall ms to the end of its device work)."""
+    """`run()` under `utils.profiling.trace` (torch.profiler; the Chrome
+    trace goes to the temporary directory): ({kernel name: (device ms,
+    launches)}, wall ms to the end of its device work)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from kuiperllama_tpu_torch.utils.profiling import trace
+
+    with trace() as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -720,6 +702,7 @@ def phase_fused_kernel(dev):
     from kuiperllama_tpu_torch.models import decoder
     from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
     from kuiperllama_tpu_torch.ops.linear import linear
+    from kuiperllama_tpu_torch.utils.profiling import device_time
 
     rows = []
     for i, (label, preset, quantize, g) in enumerate(FUSED_CASES):
@@ -730,20 +713,23 @@ def phase_fused_kernel(dev):
         check, xk = hold_fused(cfg, params, x0, full_k, full_v, A, p, sin, cos,
                                "2 layers")
 
-        variants = [params, _clone_blocks(params)]
+        variants = [(params,), (_clone_blocks(params),)]
         kc, vc = full_k[:, :A], full_v[:, :A]
-        ms = gpu_ms(lambda v: fd.fused_decode_step(cfg, v, x0, kc, vc, p, sin, cos),
-                    variants)
+        ms = device_time(lambda v: fd.fused_decode_step(cfg, v, x0, kc, vc, p, sin, cos),
+                         variants=variants, device="cuda") * 1e3
         p_host = p.cpu()  # the plain version reads pos on the host
-        plain_ms = gpu_ms(lambda v: fd.fused_decode_step_ref(
-            cfg, v, x0, kc, vc, p_host, sin, cos), variants, n=5)
+        plain_ms = device_time(lambda v: fd.fused_decode_step_ref(
+            cfg, v, x0, kc, vc, p_host, sin, cos), variants=variants, iters=5,
+            device="cuda") * 1e3
         cache = dict(k=full_k[:, None, :A].reshape(cfg.n_layers, 1, A, cfg.n_kv_heads, hd),
                      v=full_v[:, None, :A].reshape(cfg.n_layers, 1, A, cfg.n_kv_heads, hd))
         tok = torch.tensor([5], dtype=torch.int32, device=dev)
-        layered_ms = gpu_ms(lambda v: decoder.decode_step(
-            cfg, v, tok, p, cache, rope=(sin, cos)), variants, n=10)
+        layered_ms = device_time(lambda v: decoder.decode_step(
+            cfg, v, tok, p, cache, rope=(sin, cos)), variants=variants, iters=10,
+            device="cuda") * 1e3
         xf = xk.to(torch.bfloat16)
-        lm_head_ms = gpu_ms(lambda v: linear(xf, v["lm_head"]), [params], n=10)
+        lm_head_ms = device_time(lambda w: linear(xf, w), params["lm_head"], iters=10,
+                                 device="cuda") * 1e3
         nbytes = fused_step_bytes(cfg, params, pos, 2)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = fused_step_ops(cfg, params) / PEAK_OPS_PER_S["bf16"] * 1e3
@@ -773,6 +759,7 @@ def phase_fused_main_path(dev, label, preset, quantize):
     from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
     from kuiperllama_tpu_torch.params import param_bytes
     from kuiperllama_tpu_torch.serving.generate import Generator
+    from kuiperllama_tpu_torch.utils.profiling import device_time
 
     t0 = time.perf_counter()
     cfg, params = fused_model(dev, preset, quantize, 256)
@@ -836,11 +823,12 @@ def phase_fused_main_path(dev, label, preset, quantize):
     check, _ = hold_fused(cfg, params, x0, full_k, full_v, A, p, sin, cos,
                           "full depth")
     kc, vc = full_k[:, :A], full_v[:, :A]
-    ms = gpu_ms(lambda v: fd.fused_decode_step(cfg, v, x0, kc, vc, p, sin, cos),
-                [params])
+    ms = device_time(lambda v: fd.fused_decode_step(cfg, v, x0, kc, vc, p, sin, cos),
+                     params, device="cuda") * 1e3
     p_host = p.cpu()
-    plain_ms = gpu_ms(lambda v: fd.fused_decode_step_ref(cfg, v, x0, kc, vc, p_host,
-                                                         sin, cos), [params], n=3)
+    plain_ms = device_time(lambda v: fd.fused_decode_step_ref(cfg, v, x0, kc, vc, p_host,
+                                                              sin, cos),
+                           params, iters=3, device="cuda") * 1e3
     L = cfg.n_layers
     trace = torch.zeros(2 + 5 * L, dtype=torch.int64, device=dev)
     fd.fused_decode_step(cfg, params, x0, kc, vc, p, sin, cos, trace=trace)
@@ -917,6 +905,7 @@ def phase_paged_kernel(dev):
     import torch.nn.functional as F
 
     from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+    from kuiperllama_tpu_torch.utils.profiling import device_time, l2_copies
 
     cases = [(c, torch.bfloat16) for c in PAGED_CASES]
     cases.append((PAGED_CASES[2], torch.float32))
@@ -928,7 +917,7 @@ def phase_paged_kernel(dev):
         kv_bytes = 2 * tokens * KH * hd * size
         # enough stacked layers that timed launches rotate through more K/V
         # than L2 holds; correctness reads layer 1
-        layers = 1 + max(1, math.ceil(2 * L2_BYTES / kv_bytes))
+        layers = 1 + l2_copies(kv_bytes, dev)
         readings = []
         for seed in range(PAGED_SEEDS):  # seed 0's inputs are the timed ones
             inputs = paged_inputs(dev, H, KH, hd, dtype, SEED + 70 + 10 * i + seed,
@@ -937,10 +926,12 @@ def phase_paged_kernel(dev):
             if not seed:
                 q, kp, vp, work, sl, pt = inputs
             del inputs
-        ms = gpu_ms(lambda li: pa.paged_attention_flat(
-            q, kp, vp, *work, sl, page_size=ps, layer_idx=li), list(range(1, layers)))
-        plain_ms = gpu_ms(lambda li: pa.paged_attention_flat_ref(
-            q, kp, vp, *work, sl, page_size=ps, layer_idx=li), [1], n=5)
+        ms = device_time(lambda li: pa.paged_attention_flat(
+            q, kp, vp, *work, sl, page_size=ps, layer_idx=li),
+            variants=[(li,) for li in range(1, layers)], device="cuda") * 1e3
+        plain_ms = device_time(lambda: pa.paged_attention_flat_ref(
+            q, kp, vp, *work, sl, page_size=ps, layer_idx=1), iters=5,
+            device="cuda") * 1e3
         # the library yardstick: K/V gathered into [B, H, S, hd] beforehand
         S = pt.shape[1] * ps
         idx = torch.from_numpy(pt).long().to(dev)
@@ -948,10 +939,10 @@ def phase_paged_kernel(dev):
                  .repeat_interleave(H // KH, dim=1).contiguous() for p in (kp, vp)]
         mask = (torch.arange(S, device=dev)[None] < sl[:, None])[:, None, None]
         q4 = q[:, :, None]
-        copies = max(1, math.ceil(2 * L2_BYTES / (2 * dense[0].nbytes)))
-        variants = [dense] + [[d.clone() for d in dense] for _ in range(copies - 1)]
-        library_ms = gpu_ms(lambda v: F.scaled_dot_product_attention(
-            q4, v[0], v[1], attn_mask=mask), variants)
+        variants = [dense] + [[d.clone() for d in dense]
+                              for _ in range(l2_copies(2 * dense[0].nbytes, dev) - 1)]
+        library_ms = device_time(lambda k, v: F.scaled_dot_product_attention(
+            q4, k, v, attn_mask=mask), variants=variants, device="cuda") * 1e3
         nbytes = kv_bytes + q.nbytes + B * H * (hd + 2) * 4
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = 4.0 * H * hd * tokens / PEAK_OPS_PER_S[dname] * 1e3
@@ -1225,18 +1216,21 @@ def layer_byte_us(params):
 
 
 def time_big_step(cfg, params, x0, kc, vc, p, sin, cos, variants, plain_n):
-    """The big kernel's CUDA-event time over `variants`, its plain version's,
+    """The big kernel's CUDA-event time over `variants` (one-tuples of
+    params), its plain version's,
     the byte bound and one traced launch's us per phase per layer."""
     import torch
 
     from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
     from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
+    from kuiperllama_tpu_torch.utils.profiling import device_time
 
-    ms = gpu_ms(lambda v: fb.fused_decode_step_big(cfg, v, x0, kc, vc, p, sin, cos),
-                variants)
+    ms = device_time(lambda v: fb.fused_decode_step_big(cfg, v, x0, kc, vc, p, sin, cos),
+                     variants=variants, device="cuda") * 1e3
     p_host = p.cpu()  # the plain version reads pos on the host
-    plain_ms = gpu_ms(lambda v: fb.fused_decode_step_big_ref(
-        cfg, v, x0, kc, vc, p_host, sin, cos), variants[:1], n=plain_n)
+    plain_ms = device_time(lambda v: fb.fused_decode_step_big_ref(
+        cfg, v, x0, kc, vc, p_host, sin, cos), variants=variants[:1], iters=plain_n,
+        device="cuda") * 1e3
     L = cfg.n_layers
     trace = torch.zeros(2 + 5 * L, dtype=torch.int64, device=x0.device)
     fb.fused_decode_step_big(cfg, params, x0, kc, vc, p, sin, cos, trace=trace)
@@ -1273,7 +1267,7 @@ def phase_fused_big_kernel(dev):
                               plain=fb.fused_decode_step_big_ref,
                               flags=(BIG_INT8,) * 4)
         times = time_big_step(cfg, params, x0, full_k[:, :A], full_v[:, :A], p,
-                              sin, cos, [params, _clone_blocks(params)], 5)
+                              sin, cos, [(params,), (_clone_blocks(params),)], 5)
         row = dict(phase="kernel", kernel="fused_decode_big", model=label,
                    layers=FUSED_LAYERS, group_size=g,
                    scales="bf16" if s_bf16 else "fp32", plan=plan, pos=FUSED_POS,
@@ -1352,14 +1346,18 @@ def hold_chunk(cfg, params, x0, full_k, full_v, A, p, sin, cos, steps, depth):
 
 def time_chunk(cfg, params, x0, kc, vc, p, sin, cos, steps, variants, plain_n):
     """ms per step of the chunk kernel (CUDA events over launches of `steps`
-    steps), of its plain version, and the per-step byte bound."""
+    steps, rotating `variants`, one-tuples of params), of its plain version,
+    and the per-step byte bound."""
     from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+    from kuiperllama_tpu_torch.utils.profiling import device_time
 
-    ms = gpu_ms(lambda v: fd.fused_decode_chunk(cfg, v, x0, kc, vc, p, sin, cos,
-                                                steps), variants) / steps
+    ms = device_time(lambda v: fd.fused_decode_chunk(cfg, v, x0, kc, vc, p, sin, cos,
+                                                     steps),
+                     variants=variants, device="cuda") * 1e3 / steps
     p_host = p.cpu()
-    plain_ms = gpu_ms(lambda v: fd.fused_decode_chunk_ref(
-        cfg, v, x0, kc, vc, p_host, sin, cos, steps), variants[:1], n=plain_n) / steps
+    plain_ms = device_time(lambda v: fd.fused_decode_chunk_ref(
+        cfg, v, x0, kc, vc, p_host, sin, cos, steps), variants=variants[:1],
+        iters=plain_n, device="cuda") * 1e3 / steps
     nbytes = chunk_step_bytes(cfg, params, int(p.item()), steps, 2)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     lm = params["lm_head"]
@@ -1385,7 +1383,7 @@ def phase_fused_chunk_kernel(dev):
         check = hold_chunk(cfg, params, x0, full_k, full_v, A, p, sin, cos,
                            CHUNK_STEPS, "2 layers")
         times = time_chunk(cfg, params, x0, full_k[:, :A], full_v[:, :A], p, sin,
-                           cos, CHUNK_STEPS, [params, _clone_blocks(params)], 2)
+                           cos, CHUNK_STEPS, [(params,), (_clone_blocks(params),)], 2)
         row = dict(phase="kernel", kernel="fused_decode_chunk", model=label,
                    layers=FUSED_LAYERS, group_size=g,
                    quant="int8" if quantize else "bf16", pos=FUSED_POS, window=A,
@@ -1399,9 +1397,212 @@ def phase_fused_chunk_kernel(dev):
     return rows
 
 
+INT8_HOLD = (2, 4096, 2048, 64)    # exp_int8 held at L, K, N, g (the tool's K, N, g)
+INT8_TOOL = (64, 4096, 2048, 64)   # and timed at the tool's defaults
+INT8_TOL = 1e-5
+
+
+def tool_operands(dev, K, N, seed):
+    """q, s (Q8_0 of normal draws, group 64, fp32 scales) and bf16 x [8, K],
+    as exp_kernel.main makes them."""
+    import torch
+
+    from kuiperllama_tpu_torch.quant import quantize_q80
+    from kuiperllama_tpu_torch.tools import exp_kernel as ek
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    w = quantize_q80(torch.randn((K, N), generator=gen, device=dev), ek.G)
+    x = torch.randn((ek.M_DECODE, K), generator=gen, device=dev).to(torch.bfloat16)
+    return x, w.q, w.s
+
+
+def hold_exp_kernel(dev):
+    """exp_stream at every stream tile of the JAX tool that divides each
+    TinyLlama-1.1B shape (equal to its plain version; lm_head has none),
+    exp_outscale at each shape's sweep tiles and the tool's `current` (the
+    GEMM: bf16 x, fp32 scales, g 64) at M = 8 (both within 2^-7), then
+    times: kernel, plain version, and the yardstick (torch.sum of q in int32
+    for the stream; bf16 x @ the pre-dequantized bf16 weight for outscale)
+    beside the bound, on weight copies rotated past L2."""
+    import torch
+
+    from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
+    from kuiperllama_tpu_torch.tools import exp_kernel as ek
+    from kuiperllama_tpu_torch.utils.profiling import device_time, l2_copies
+
+    def ms(fn, variants, iters=25):
+        return device_time(fn, variants=variants, iters=iters, device="cuda") * 1e3
+
+    stream, outscale = [], []
+    for i, (name, (K, N)) in enumerate(ek.SHAPES.items()):
+        x, q, s = tool_operands(dev, K, N, SEED + 70 + i)
+        M = x.shape[0]
+        qs = [(q,)] + [(q.clone(),) for _ in range(l2_copies(K * N, dev) - 1)]
+        tiles = [t for t in ek.STREAM_TILES if K % t[0] == 0 and N % t[1] == 0]
+        errs = [(ek.exp_stream(q, tk, tn) - ek.stream_ref(q, tk, tn)).abs().item()
+                for tk, tn in tiles]
+        if tiles:
+            tk, tn = tiles[0]
+            row = dict(phase="tools", kernel="exp_stream", weight=name, K=K, N=N,
+                       tiles_held=tiles, max_abs_err=max(errs), ok=max(errs) == 0,
+                       tk=tk, tn=tn,
+                       ms=ms(lambda qq: ek.exp_stream(qq, tk, tn), qs),
+                       plain_ms=ms(lambda qq: ek.stream_ref(qq, tk, tn), qs, 10),
+                       yardstick_ms=ms(lambda qq: torch.sum(qq, dtype=torch.int32), qs),
+                       bound_ms=K * N / HBM_BYTES_PER_S * 1e3, bound_by="bytes", card=CARD)
+            emit(row)
+            stream.append(row)
+            if not row["ok"]:
+                raise AssertionError(f"exp_stream differs from its plain version: {row}")
+
+        got, want = qm.quant_gemm(x, q, s, ek.G), qm.quant_gemm_ref(x, q, s, ek.G)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        row = dict(phase="tools", kernel="quant_gemm", variant="current", weight=name,
+                   M=M, K=K, N=N, g=ek.G, scales="float32", rel_err=err,
+                   max_abs_err=(got.float() - want.float()).abs().max().item(),
+                   ok=err <= BF16_ULP and bool(torch.isfinite(got).all()), card=CARD)
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"quant_gemm disagrees with its plain version: {row}")
+
+        tk, tn = ek.sweep_tiles(K, N)
+        got, want = ek.exp_outscale(x, q, s, tk, tn), ek.outscale_ref(x, q, s, tk, tn)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        wd = qm.dequantize_bf16(q, s, ek.G)
+        wds = [(x, wd)] + [(x, wd.clone()) for _ in range(l2_copies(2 * K * N, dev) - 1)]
+        bytes_ms, ops_ms = bound(M, K, N, ek.G, 2, 4, 2, "bf16")
+        row = dict(phase="tools", kernel="exp_outscale", weight=name, M=M, K=K, N=N,
+                   tk=tk, tn=tn, rel_err=err,
+                   max_abs_err=(got.float() - want.float()).abs().max().item(),
+                   ok=err <= BF16_ULP and bool(torch.isfinite(got).all()),
+                   ms=ms(lambda qq: ek.exp_outscale(x, qq, s, tk, tn), qs),
+                   plain_ms=ms(lambda qq: ek.outscale_ref(x, qq, s, tk, tn), qs, 10),
+                   library_ms=ms(torch.matmul, wds),
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations", card=CARD)
+        emit(row)
+        outscale.append(row)
+        del qs, wd, wds
+        if not row["ok"]:
+            raise AssertionError(f"exp_outscale disagrees with its plain version: {row}")
+    return stream, outscale
+
+
+def int8_bound(mode, L, K, N, g):
+    """(bytes, bound ms, bound_by) of one exp_int8 pass: nodot reads the
+    weights alone and adds 16 rows per layer; the GEMV modes read weights,
+    fp32 scales and x and do 2 L K N operations at the peak of their type."""
+    if mode == "nodot":
+        nbytes, ops, kind = L * K * N + 4 * N, 16.0 * L * N, "fp32"
+    else:
+        nbytes = L * K * N + 4 * L * (K // g) * N + 2 * K + 4 * N
+        ops, kind = 2.0 * L * K * N, "int8" if mode.startswith("int8") else "bf16"
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return nbytes, max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def hold_exp_int8(dev):
+    """Every exp_int8 mode at its tool split, held against its plain version
+    at INT8_HOLD and on the tool's own default stack, INT8_TOOL (nodot
+    equal, the rest within INT8_TOL), then timed there (ms per pass, GB/s of
+    the bytes the mode reads, us per tile) beside its bound and the plain
+    version. No single library call sums a GEMV over layers."""
+    import torch
+
+    from kuiperllama_tpu_torch.tools import exp_int8 as ei
+
+    def hold(w, s, x, g, mode, nsplit):
+        got = ei.exp_int8(w, s, x, g, mode, nsplit)
+        want = ei.exp_int8_ref(w, s, x, g, mode, nsplit)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        err = rel_err(got, want)
+        return dict(rel_err=err, max_abs_err=(got - want).abs().max().item(),
+                    equal=equal, ok=equal if mode == "nodot" else err <= INT8_TOL)
+
+    w, s, x = ei.make_stack(dev, *INT8_HOLD, seed=SEED + 80)
+    small = {m: hold(w, s, x, INT8_HOLD[3], m, ei.default_nsplit(m)) for m in ei.MODES}
+    del w, s, x
+    L, K, N, g = INT8_TOOL
+    w, s, x = ei.make_stack(dev, L, K, N, g)  # exp_int8.main's stack
+    rows = []
+    for mode in ei.MODES:
+        nsplit = ei.default_nsplit(mode)
+        full = hold(w, s, x, g, mode, nsplit)
+        ms = ei.measure(w, s, x, g, mode, nsplit) * 1e3
+        nbytes, bound_ms, bound_by = int8_bound(mode, L, K, N, g)
+        row = dict(phase="tools", kernel="exp_int8", mode=mode, nsplit=nsplit,
+                   held_at={f"L={INT8_HOLD[0]}": small[mode], f"L={L}": full},
+                   max_abs_err=max(small[mode]["max_abs_err"], full["max_abs_err"]),
+                   ok=small[mode]["ok"] and full["ok"],
+                   L=L, K=K, N=N, g=g, ms=ms, bytes=nbytes,
+                   GBps=nbytes / ms / 1e6, us_per_tile=ms / L * 1e3,
+                   plain_ms=ei.measure(w, s, x, g, mode, nsplit, 3, ei.exp_int8_ref) * 1e3,
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by, card=CARD)
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            raise AssertionError(f"exp_int8 ({mode}) disagrees with its plain version: {row}")
+    return rows
+
+
+def phase_tools(dev):
+    """The kernel-measurement tools (kuiperllama_tpu_torch/tools): the
+    roofline probes at their defaults, the three tool kernels held and
+    timed, then the tools' own entry points as a user runs them
+    (`exp_kernel` and `exp_int8` with their defaults, `bench_kernels` at
+    llama2-7b M = 8, kernel and torch variants), with every launch count
+    zeroed just before and read just after: each timed call launches once
+    (plus one warm-up per variant), so the counts are exact."""
+    from kuiperllama_tpu_torch.tools import ITERS, bench_kernels, roofline
+    from kuiperllama_tpu_torch.tools import exp_int8 as ei
+    from kuiperllama_tpu_torch.tools import exp_kernel as ek
+
+    emit(dict(phase="tools", tool="roofline", **roofline.run(dev), card=CARD))
+    stream, outscale = hold_exp_kernel(dev)
+    int8 = hold_exp_int8(dev)
+    # bench_kernels' kernel variant at llama2-7b, M = 8: the GEMM at g 64
+    # with fp32 scales at each of its five shapes
+    for i, (name, K, N, _) in enumerate(GEMV_SHAPES):
+        check_kernel("quant_gemm", dev, ENGINE_SLOTS, K, N, 64, "fast", SEED + 100 + i,
+                     name, scales="float32")
+
+    zero_launches()
+    ek_rows = ek.main(["--device", "cuda"])
+    ei_rows = ei.main(["--device", "cuda"])
+    bench = {v: bench_kernels.main(["--device", "cuda", "--model", "llama2-7b",
+                                    "--m", str(ENGINE_SLOTS),
+                                    "--variant", v])
+             for v in ("kernel", "torch")}
+    launches = read_launches()
+    calls = ITERS + 1
+    n = {v: sum(r["variant"] == v for r in ek_rows) for v in ("stream", "current", "outscale")}
+    expect = dict(NO_LAUNCHES, exp_stream=calls * n["stream"],
+                  exp_outscale=calls * n["outscale"], exp_int8=calls * len(ei_rows),
+                  quant_gemm=calls * (n["current"] + 5))
+    for out in bench.values():
+        emit(dict(phase="tools", tool="bench_kernels", **out, card=CARD))
+    n_stream = sum(K % tk == 0 and N % tn == 0 for K, N in ek.SHAPES.values()
+                   for tk, tn in ek.STREAM_TILES)
+    ok = (launches == expect and n == dict(stream=n_stream, current=len(ek.SHAPES),
+                                           outscale=len(ek.SHAPES))
+          and len(ei_rows) == 5)
+    emit(dict(phase="main_path", path="tools", exp_kernel_rows=len(ek_rows),
+              exp_int8_rows=len(ei_rows), launches=launches, launches_expected=expect,
+              ok=ok, card=CARD))
+    if not ok:
+        raise AssertionError("the tools' launch counts differ from their rows")
+    return dict(exp_stream=stream, exp_outscale=outscale, exp_int8=int8), launches
+
+
 NO_LAUNCHES = dict.fromkeys(("quant_gemv", "quant_gemm", "fused_decode",
                              "fused_decode_big", "fused_decode_chunk",
-                             "paged_attention"), 0)
+                             "paged_attention", "exp_stream", "exp_outscale",
+                             "exp_int8"), 0)
 
 
 def zero_launches():
@@ -1410,10 +1611,13 @@ def zero_launches():
     from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
     from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
     from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
+    from kuiperllama_tpu_torch.tools import exp_int8 as ei
+    from kuiperllama_tpu_torch.tools import exp_kernel as ek
 
     qm.quant_gemv.launches = qm.quant_gemm.launches = 0
     fd.fused_decode_step.launches = fd.fused_decode_chunk.launches = 0
     fb.fused_decode_step_big.launches = pa.paged_attention_flat.launches = 0
+    ek.exp_stream.launches = ek.exp_outscale.launches = ei.exp_int8.launches = 0
 
 
 def read_launches():
@@ -1421,8 +1625,13 @@ def read_launches():
     from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
     from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
     from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
+    from kuiperllama_tpu_torch.tools import exp_int8 as ei
+    from kuiperllama_tpu_torch.tools import exp_kernel as ek
 
     return {"quant_gemv": qm.quant_gemv.launches, "quant_gemm": qm.quant_gemm.launches,
+            "exp_stream": ek.exp_stream.launches,
+            "exp_outscale": ek.exp_outscale.launches,
+            "exp_int8": ei.exp_int8.launches,
             "fused_decode": fd.fused_decode_step.launches,
             "fused_decode_big": fb.fused_decode_step_big.launches,
             "fused_decode_chunk": fd.fused_decode_chunk.launches,
@@ -1510,7 +1719,7 @@ def phase_big_main_path(dev):
                           plain=fb.fused_decode_step_big_ref,
                           flags=(BIG_INT8,) * 4, held=("plain_cpu",))
     times = time_big_step(cfg, params, x0, full_k[:, :A], full_v[:, :A], p, sin,
-                          cos, [params], 1)
+                          cos, [(params,)], 1)
     step = dict(phase="fused_big_step", model="llama2-7b g64", layers=cfg.n_layers,
                 pos=FUSED_POS, window=A, **check, **times, card=CARD)
     emit(step)
@@ -1579,7 +1788,7 @@ def phase_chunk_main_path(dev, label, preset, quantize, per_step_row):
     check = hold_chunk(cfg, params, x0, full_k, full_v, A, p, sin, cos,
                        CHUNK_STEPS, "full depth")
     times = time_chunk(cfg, params, x0, full_k[:, :A], full_v[:, :A], p, sin, cos,
-                       CHUNK_STEPS, [params], 1)
+                       CHUNK_STEPS, [(params,)], 1)
     step = dict(phase="fused_chunk_step", model=label, layers=cfg.n_layers,
                 pos=FUSED_POS, window=A, **check, **times, card=CARD)
     emit(step)
@@ -1593,8 +1802,49 @@ def _sum(rows, key):
     return sum(r[key] * n for r, n in rows)
 
 
+def tool_entries(tool_rows, launches):
+    """The kernels line's entries of the tool kernels; `launches` is the
+    tools' main path (their entry points run with their defaults)."""
+    st, os_ = tool_rows["exp_stream"], tool_rows["exp_outscale"]
+    bf16 = next(r for r in tool_rows["exp_int8"] if r["mode"] == "bf16")
+
+    def total(rows, key):
+        return sum(r[key] for r in rows)
+
+    def entry(name, source, replaces, **fields):
+        return dict(name=name, route="cuda", source=f"kuiperllama_tpu_torch/csrc/{source}.cu",
+                    replaces=replaces, launches=launches[name], **fields, card=CARD)
+
+    return [
+        entry("exp_stream", "exp_kernel", "tools/exp_kernel.py:57",
+              max_abs_err=max(r["max_abs_err"] for r in st), ms=total(st, "ms"),
+              plain_ms=total(st, "plain_ms"), bound_ms=total(st, "bound_ms"),
+              bound_by="bytes",
+              # torch.sum reads the same bytes but computes another value
+              library_ms=None, yardstick_ms=total(st, "yardstick_ms"),
+              per="one sweep of the TinyLlama-1.1B shapes that have a stream tile, "
+                  "each at its first: " + ", ".join(
+                      f"{r['weight']} {r['tk']}x{r['tn']}" for r in st)),
+        entry("exp_outscale", "exp_kernel", "tools/exp_kernel.py:86",
+              max_abs_err=max(r["max_abs_err"] for r in os_), ms=total(os_, "ms"),
+              plain_ms=total(os_, "plain_ms"), bound_ms=total(os_, "bound_ms"),
+              bound_by="bytes", library_ms=total(os_, "library_ms"),
+              per="one sweep of the five TinyLlama-1.1B shapes at M = 8, bf16 x, "
+                  "fp32 scales: " + ", ".join(
+                      f"{r['weight']} {r['tk']}x{r['tn']}" for r in os_)),
+        entry("exp_int8", "exp_int8", "tools/exp_int8.py:47",
+              max_abs_err=max(r["max_abs_err"] for r in tool_rows["exp_int8"]),
+              ms=bf16["ms"], plain_ms=bf16["plain_ms"], bound_ms=bf16["bound_ms"],
+              bound_by=bf16["bound_by"],
+              # no single PyTorch call sums a GEMV over 64 layers
+              library_ms=None,
+              per="one bf16-mode pass over the tool's stack: L 64, K 4096, N 2048, "
+                  "g 64 (every mode's time is in the tools rows)"),
+    ]
+
+
 def kernels_line(gemv, gemm, fused_rows, fused_step, paged_rows, launches_by_path,
-                 big_rows, big_step, chunk_rows, chunk_step):
+                 big_rows, big_step, chunk_rows, chunk_step, tool_rows):
     """One entry per kernel. `launches` is the count on the kernel's main
     path (Llama-2-7B for the GEMV and GEMM, TinyLlama-1.1B for the
     megakernel, the Llama-2-7B engine for paged attention, the Llama-2-7B
@@ -1686,6 +1936,7 @@ def kernels_line(gemv, gemm, fused_rows, fused_step, paged_rows, launches_by_pat
         paged,
         big,
         chunk,
+        *tool_entries(tool_rows, launches_by_path["tools"]),
     ]}
 
 
@@ -1701,6 +1952,9 @@ def main() -> int:
     from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
     from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
     from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
+    from kuiperllama_tpu_torch.tools import exp_int8 as ei
+    from kuiperllama_tpu_torch.tools import exp_kernel as ek
+    from kuiperllama_tpu_torch.utils.profiling import nvidia_smi_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1713,10 +1967,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = build.build([qm.GEMV_SOURCE, qm.GEMM_SOURCE, fd.SOURCE, pa.SOURCE,
-                         fb.SOURCE, fd.CHUNK_SOURCE])
+                         fb.SOURCE, fd.CHUNK_SOURCE, ek.SOURCE, ei.SOURCE])
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               per_source_s=built, flags=" ".join(build.NVCC_FLAGS)))
 
+    tool_rows, tool_launches = phase_tools(dev)
     gemv, gemm = phase_kernels(dev)
     fused_rows = phase_fused_kernel(dev)
     big_rows = phase_fused_big_kernel(dev)
@@ -1724,7 +1979,7 @@ def main() -> int:
     paged_rows = phase_paged_kernel(dev)
     phase_fixture(dev)
     fixture_cfg, fixture_params, fixture_tokens = phase_engine_fixture(dev)
-    launches = {"llama2-7b": phase_main_path(dev)}
+    launches = {"tools": tool_launches, "llama2-7b": phase_main_path(dev)}
     launches["llama2-7b big"], big_step = phase_big_main_path(dev)
     launches["tinyllama-1.1b"], fused_step, tl_row = phase_fused_main_path(
         dev, "tinyllama-1.1b", "tinyllama-1.1b", True)
@@ -1741,7 +1996,7 @@ def main() -> int:
     phase_server(dev, fixture_cfg, fixture_params, fixture_tokens)
     emit(kernels_line(gemv, gemm, fused_rows + [fused_step, qwen_step],
                       fused_step, paged_rows, launches, big_rows, big_step,
-                      chunk_rows + [qwen_chunk_step], chunk_step))
+                      chunk_rows + [qwen_chunk_step], chunk_step, tool_rows))
     print(CARD, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -83,3 +83,13 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name)))
         _libs[name] = lib
     return lib
+
+
+def entry(source: str, name: str, argtypes):
+    """The C entry point `name` of `csrc/<source>.cu`, typed for ctypes; it
+    returns a cudaError_t as an int."""
+    fn = getattr(load(source), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

@@ -410,7 +410,6 @@ class _Args(ctypes.Structure):
 
 W_INT8, W_BF16, W_FP32 = 0, 1, 2
 _COLS_PER_THREAD = {W_INT8: 16, W_BF16: 8, W_FP32: 4}
-_fns: dict = {}
 _occupancy: dict = {}
 _workspace: dict = {}
 
@@ -419,17 +418,9 @@ def kernel_fns(source: str, launch_name: str, args_type=_Args):
     """(launch, occupancy query) of a megakernel library: `launch_name`
     takes (args*, stream), `<launch_name>_blocks_per_sm` (variant, smem,
     int*); both return a cudaError_t."""
-    fns = _fns.get(source)
-    if fns is None:
-        lib = build.load(source)
-        launch = getattr(lib, launch_name)
-        launch.argtypes = [ctypes.POINTER(args_type), _c_void_p]
-        launch.restype = _c_int
-        occ = getattr(lib, f"{launch_name}_blocks_per_sm")
-        occ.argtypes = [_c_int, _c_int, ctypes.POINTER(_c_int)]
-        occ.restype = _c_int
-        fns = _fns[source] = (launch, occ)
-    return fns
+    return (build.entry(source, launch_name, [ctypes.POINTER(args_type), _c_void_p]),
+            build.entry(source, f"{launch_name}_blocks_per_sm",
+                        [_c_int, _c_int, ctypes.POINTER(_c_int)]))
 
 
 def blocks_per_sm(source, occ, device, variant: int, smem: int) -> int:

@@ -37,7 +37,6 @@ _ARGS = [_c_void_p, _c_int, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p,
          _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
          _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
          ctypes.c_float, _c_void_p]
-_fn = None
 
 
 def build_work_list(page_table, seq_lens, page_size: int):
@@ -146,16 +145,6 @@ def paged_attention_flat_ref(q, k_pages, v_pages, flat_b, flat_page, flat_tok0,
 # Kernel wrapper
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        fn = getattr(build.load(SOURCE), SOURCE)
-        fn.argtypes = _ARGS
-        fn.restype = _c_int
-        _fn = fn
-    return _fn
-
-
 def _check(q, kp, vp, meta, hd, ps, kv_mul):
     dev = q.device
     if not all(t.device == dev for t in (kp, vp, *meta)):
@@ -217,7 +206,7 @@ def paged_attention_flat(q, k_pages, v_pages, flat_b, flat_page, flat_tok0,
     acc = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    rc = _kernel_fn()(
+    rc = build.entry(SOURCE, SOURCE, _ARGS)(
         q.data_ptr(), int(q.dtype == torch.bfloat16), kp.data_ptr(),
         vp.data_ptr(), int(kp.dtype == torch.bfloat16), flat_b.data_ptr(),
         flat_page.data_ptr(), flat_tok0.data_ptr(), n_items.data_ptr(),

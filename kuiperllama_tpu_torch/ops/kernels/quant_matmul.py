@@ -112,18 +112,6 @@ _GEMV_ARGS = [_c_void_p, _c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
 _GEMM_ARGS = [_c_void_p, _c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
               _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
               _c_int, _c_void_p]
-_fns: dict = {}
-
-
-def _kernel_fn(source: str, argtypes):
-    """The C entry point `source` of csrc/<source>.cu, typed for ctypes."""
-    fn = _fns.get(source)
-    if fn is None:
-        fn = getattr(build.load(source), source)
-        fn.argtypes = argtypes
-        fn.restype = _c_int
-        _fns[source] = fn
-    return fn
 
 
 def gemv_groups_per_split(K: int, N: int, g: int, sm_count: int) -> int:
@@ -170,7 +158,7 @@ def quant_gemv(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     partial = (torch.empty((splits, N), dtype=torch.float32, device=x.device)
                if splits > 1 else y)
     vec = int(N % 16 == 0 and q.data_ptr() % 16 == 0)
-    rc = _kernel_fn(GEMV_SOURCE, _GEMV_ARGS)(
+    rc = build.entry(GEMV_SOURCE, GEMV_SOURCE, _GEMV_ARGS)(
         x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(),
         s.data_ptr(), int(s.dtype == torch.bfloat16), y.data_ptr(),
         partial.data_ptr(), K, N, g, gps, vec,
@@ -197,7 +185,7 @@ def quant_gemm(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, g: int,
     partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
                if splits > 1 else y)
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, q, s))
-    rc = _kernel_fn(GEMM_SOURCE, _GEMM_ARGS)(
+    rc = build.entry(GEMM_SOURCE, GEMM_SOURCE, _GEMM_ARGS)(
         x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(),
         s.data_ptr(), int(s.dtype == torch.bfloat16), y.data_ptr(),
         partial.data_ptr(), M, K, N, g, int(mode == "exact"), kps,

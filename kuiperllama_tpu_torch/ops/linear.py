@@ -32,18 +32,25 @@ def _dequant_dot(x2: torch.Tensor, w: QuantTensor) -> torch.Tensor:
     return (x2.to(torch.bfloat16).float() @ wd.float()).to(x2.dtype)
 
 
+def quant_kernel(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, g: int,
+                 mode: str = "fast") -> torch.Tensor:
+    """The INT8 kernel that x2 [rows, K] takes below PREFILL_DEQUANT_ROWS
+    rows: the GEMV at one row in fast mode with at most GEMV_MAX_GROUPS
+    groups, else the GEMM."""
+    K = q.shape[0]
+    if (x2.shape[0] == 1 and mode == "fast" and K % g == 0
+            and K // g <= GEMV_MAX_GROUPS):
+        return quant_gemv(x2, q, s, g)
+    return quant_gemm(x2, q, s, g, mode)
+
+
 def _quant_linear(x: torch.Tensor, w: QuantTensor, mode: str) -> torch.Tensor:
     K, N = w.q.shape
-    g = w.group_size
     x2 = x.reshape(-1, K).contiguous()
-    rows = x2.shape[0]
-    if rows >= PREFILL_DEQUANT_ROWS:
+    if x2.shape[0] >= PREFILL_DEQUANT_ROWS:
         out = _dequant_dot(x2, w)
-    elif (rows == 1 and mode == "fast" and K % g == 0
-          and K // g <= GEMV_MAX_GROUPS):
-        out = quant_gemv(x2, w.q, w.s, g)
     else:
-        out = quant_gemm(x2, w.q, w.s, g, mode)
+        out = quant_kernel(x2, w.q, w.s, w.group_size, mode)
     return out.reshape(*x.shape[:-1], N)
 
 

@@ -567,3 +567,118 @@ def test_paged_attention_rejects_bad_input(dev):
     with pytest.raises(ValueError):  # kv_mul 16 is past the kernel's tile
         q16 = torch.zeros((1, 32, 64), device=dev, dtype=torch.bfloat16)
         pa.paged_attention_flat(q16, kp, vp, *work, sl, page_size=8, layer_idx=0)
+
+
+# ---------------------------------------------------------------------------
+# The measurement tools' kernels (csrc/exp_kernel.cu, csrc/exp_int8.cu)
+
+
+@pytest.mark.parametrize("K,N,tk,tn", [
+    (2048, 2560, 2048, 512), (2048, 2048, 512, 512), (5632, 2048, 512, 2048),
+    (4096, 1024, 1024, 1024), (256, 48, 128, 16), (96, 40, 32, 8),  # scalar loads
+])
+def test_exp_stream_equals_plain(dev, K, N, tk, tn):
+    from kuiperllama_tpu_torch.tools import exp_kernel as ek
+
+    rng = np.random.default_rng(K + N)
+    q = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8)).to(dev)
+    before = ek.exp_stream.launches
+    got = ek.exp_stream(q, tk, tn)
+    torch.cuda.synchronize()
+    assert ek.exp_stream.launches == before + 1
+    assert got.shape == (1, 1) and got.dtype == torch.float32
+    assert torch.equal(got, ek.stream_ref(q, tk, tn))
+    assert torch.equal(got.cpu(), ek.stream_ref(q.cpu(), tk, tn))
+
+
+@pytest.mark.parametrize("M", [1, 8])
+@pytest.mark.parametrize("s_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N,tk,tn", [
+    (2048, 2560, 2048, 512), (5632, 2048, 512, 512), (2048, 32000, 2048, 256),
+    (1024, 256, 256, 128),
+])
+def test_exp_outscale_matches_plain(dev, M, s_dtype, K, N, tk, tn):
+    from kuiperllama_tpu_torch.tools import exp_kernel as ek
+
+    x, q, s = _operands(dev, M, K, N, 64, torch.bfloat16, s_dtype, seed=M + K)
+    before = ek.exp_outscale.launches
+    got = ek.exp_outscale(x, q, s, tk, tn)
+    torch.cuda.synchronize()
+    assert ek.exp_outscale.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert _rel(got, ek.outscale_ref(x, q, s, tk, tn)) <= BF16_ULP
+    assert torch.equal(ek.exp_outscale(x, q, s, tk, tn), got)
+
+
+def test_exp_outscale_rejects_what_the_kernel_does_not_take(dev):
+    from kuiperllama_tpu_torch.tools import exp_kernel as ek
+
+    x, q, s = _operands(dev, 17, 512, 256, 64, torch.bfloat16, torch.float32)
+    with pytest.raises(ValueError, match="M <= 16"):
+        ek.exp_outscale(x, q, s, 512, 256)
+    with pytest.raises(ValueError, match="do not divide"):
+        ek.exp_outscale(x[:8], q, s, 384, 256)
+
+
+def _int8_stack(dev, L, K, N, g, seed=0):
+    """w, s, x on the card; x (bf16) has a group of zeros (d = 1) and a
+    group with max|x| = 127 (d = 1) holding the .5 ties 2.5, -3.5, 0.5."""
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.integers(-127, 128, (L, K, N)).astype(np.int8))
+    s = torch.from_numpy(rng.uniform(0.005, 0.02, (L, K // g, N)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((1, K)).astype(np.float32)).to(torch.bfloat16)
+    x[0, g:2 * g] = 0
+    x[0, 2 * g:2 * g + 5] = torch.tensor([127.0, 2.5, -3.5, 0.5, -1.5])
+    return w.to(dev), s.to(dev), x.to(dev)
+
+
+@pytest.mark.parametrize("g", [64, 128])
+@pytest.mark.parametrize("mode,nsplit", [
+    ("nodot", 1), ("nodot", 2), ("nodot", 4), ("bf16", 1), ("bf16", 4),
+    ("split4", 1), ("split4", 4), ("int8", 1), ("int8", 4), ("int8_split4", 1),
+    ("int8_split4", 4), ("plain8", 1),
+])
+def test_exp_int8_matches_plain(dev, mode, nsplit, g):
+    from kuiperllama_tpu_torch.tools import exp_int8 as ei
+
+    w, s, x = _int8_stack(dev, 3, 2048, 512, g, seed=g + nsplit)
+    before = ei.exp_int8.launches
+    got = ei.exp_int8(w, s, x, g, mode, nsplit)
+    torch.cuda.synchronize()
+    assert ei.exp_int8.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (1, 512)
+    want = ei.exp_int8_ref(w, s, x, g, mode, nsplit)
+    if mode == "nodot":
+        assert torch.equal(got, want)
+    else:
+        assert _rel(got, want) <= 1e-5
+        assert _rel(got.cpu(), ei.exp_int8_ref(w.cpu(), s.cpu(), x.cpu(), g, mode,
+                                               nsplit)) <= 1e-5
+    assert torch.equal(ei.exp_int8(w, s, x, g, mode, nsplit), got)
+
+
+def test_exp_int8_at_the_tool_shape(dev):
+    from kuiperllama_tpu_torch.tools import exp_int8 as ei
+
+    w, s, x = ei.make_stack(dev, 2, 4096, 2048, 64)
+    for mode in ei.MODES:
+        nsplit = ei.default_nsplit(mode)
+        got = ei.exp_int8(w, s, x, 64, mode, nsplit)
+        want = ei.exp_int8_ref(w, s, x, 64, mode, nsplit)
+        if mode == "nodot":
+            assert torch.equal(got, want)
+        else:
+            assert _rel(got, want) <= 1e-5, (mode, _rel(got, want))
+
+
+def test_exp_int8_refuses_shapes(dev):
+    from kuiperllama_tpu_torch.tools import exp_int8 as ei
+
+    w, s, x = _int8_stack(dev, 1, 1536, 256, 64)
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        ei.exp_int8(w, s, x, 64, "plain8")
+    with pytest.raises(ValueError, match="nsplit 3"):
+        ei.exp_int8(w, s, x, 64, "int8", 3)
+    w2, s2, x2 = _int8_stack(dev, 1, 1024, 320, 64)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        ei.exp_int8(w2, s2, x2, 64, "bf16")

@@ -14,7 +14,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "kuiperllama_tpu_torch"
-BANNED = ("jax", "jaxlib", "kuiperllama_tpu")
+# `tools` is the repo-root package of JAX tools (tools/exp_diag.py imports
+# it as `tools.*`); the port's own tools are kuiperllama_tpu_torch.tools.
+BANNED = ("jax", "jaxlib", "kuiperllama_tpu", "tools")
 
 
 def _modules(path: Path, pkg_parts):
@@ -87,7 +89,9 @@ def test_fresh_interpreter_imports_no_jax():
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}]\n"
             "assert not bad, bad\n"
-            "assert 'triton' not in sys.modules\n")
+            "assert 'triton' not in sys.modules\n"
+            "from kuiperllama_tpu_torch.ops.kernels import build\n"
+            "assert not build._libs, build._libs\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -104,3 +108,18 @@ def test_scan_covers_the_megakernel_routes():
     readers = {f.relative_to(PKG).as_posix() for f, _ in _port_sources()
                if "environ" in f.read_text() and "KT_" in f.read_text()}
     assert readers == {"ops/tuning.py"}
+
+
+def test_scan_covers_the_measurement_tools():
+    """The profiling module and the four tools are scanned; inside the
+    port's tools package a relative import resolves to the port, and an
+    absolute `tools.*` import (the JAX tools) is banned."""
+    scanned = {f.relative_to(PKG).as_posix() for f, _ in _port_sources()}
+    assert {"utils/profiling.py", "tools/roofline.py", "tools/exp_kernel.py",
+            "tools/exp_int8.py", "tools/bench_kernels.py"} <= scanned
+    got = set(_modules(PKG / "tools" / "exp_kernel.py", ["kuiperllama_tpu_torch", "tools"]))
+    assert {"kuiperllama_tpu_torch.tools", "kuiperllama_tpu_torch.utils.profiling",
+            "kuiperllama_tpu_torch.ops.kernels"} <= got
+    assert not [n for n in got if _banned(n)]
+    assert _banned("tools.roofline") and _banned("tools")
+    assert not _banned("kuiperllama_tpu_torch.tools.roofline")
