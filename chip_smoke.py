@@ -89,7 +89,8 @@ last line:
      counts, peak memory, and a profile of one decode chunk.
  11. server: InferenceServer and its HTTP front end on 127.0.0.1 over a
      PagedEngine of the fixture: concurrent requests answer the CPU
-     engine's tokens, an invalid one gets a 400 and serving continues.
+     engine's tokens, an invalid one gets a 400 and serving continues; a
+     request that times out is cancelled (the pool's free pages come back).
 Then one {"kernels": [...]} line, the nvidia-smi line of the card, and the
 last line {"ok": true, "device": {...}}.
 
@@ -1052,7 +1053,13 @@ def profile_engine_chunk(eng, model, requests):
                device_idle_share_unprofiled=(1 - busy_ms / PROFILE_STEPS / step_ms
                                              if by_name else "not measured"),
                launches_per_step=sum(n for _, n in by_name.values()) / PROFILE_STEPS,
-               top_kernels=top_kernels(by_name, PROFILE_STEPS), card=CARD)
+               top_kernels=top_kernels(by_name, PROFILE_STEPS),
+               # device kernels, not wrapper calls: read_launches counts calls
+               device_kernels_per_call={
+                   "paged_attention": "2 (per-page statistics, then the row merge)",
+                   "quant_gemm": "2 when K is split (the splits, then their "
+                                 "ordered sum), else 1"},
+               card=CARD)
     emit(row)
     return row
 
@@ -1133,7 +1140,8 @@ def phase_server(dev, cfg, params, want):
     """InferenceServer and its HTTP front end on 127.0.0.1 over a PagedEngine
     of the fixture on the card: concurrent /generate requests answer the CPU
     engine's tokens, /healthz and /metrics answer, an invalid request gets a
-    400 and the next valid one is served."""
+    400 and the next valid one is served; a request that times out is
+    cancelled and its pages come back."""
     import threading
     import urllib.error
     import urllib.request
@@ -1188,17 +1196,34 @@ def phase_server(dev, cfg, params, want):
         good_code, good = post({"prompt_ids": FIXTURE_PROMPTS[0],
                                 "max_new_tokens": FIXTURE_NEW})
         metrics = get("/metrics")
+        # a request that times out is cancelled: its slot and pages come back
+        free0 = eng.allocator.n_free_pages
+        try:
+            srv.submit(prompt_ids=FIXTURE_PROMPTS[2], max_new_tokens=FIXTURE_NEW,
+                       timeout_s=1e-3)
+            timed_out = False
+        except TimeoutError:
+            timed_out = True
+        end = time.perf_counter() + 60
+        while (eng.has_work or eng.allocator.n_free_pages != free0) and \
+                time.perf_counter() < end:
+            time.sleep(0.01)
+        freed = not eng.has_work and eng.allocator.n_free_pages == free0
+        health_after = get("/healthz")
     finally:
         httpd.shutdown()
         httpd.server_close()
         srv.stop()
     ok = (answers_ok and health.get("ok") is True and bad_code == 400
           and good_code == 200 and good["ids"] == want[tuple(FIXTURE_PROMPTS[0])]
-          and metrics.get("served") == len(FIXTURE_PROMPTS) + 1)
+          and metrics.get("served") == len(FIXTURE_PROMPTS) + 1
+          and timed_out and freed and health_after.get("ok") is True)
     emit(dict(phase="server", concurrent_requests=len(FIXTURE_PROMPTS),
               answers_equal_cpu_engine=answers_ok, healthz=health,
               invalid_request_status=bad_code, invalid_request_error=bad.get("error"),
-              next_valid_status=good_code, metrics=metrics, ok=ok, card=CARD))
+              next_valid_status=good_code, metrics=metrics,
+              timeout_raised=timed_out, timed_out_request_freed=freed,
+              healthz_after_timeout=health_after, ok=ok, card=CARD))
     if not ok:
         raise AssertionError("the HTTP server failed its checks")
 

@@ -29,14 +29,15 @@ from . import build
 SOURCE = "paged_attention"
 NEG_INF = -1e30
 _THREADS = 128   # threads per block in csrc/paged_attention.cu
+_WARPS = _THREADS // 32
 _MAX_KV_MUL = 8  # the kernel's largest register tile of query heads
-_SMEM_LIMIT = 48 * 1024  # dynamic shared memory without opting in to more
+_SMEM_LIMIT = 227 * 1024  # shared memory a block may opt in to on sm_90
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_c_void_p, _c_int, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p,
          _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-         _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
-         ctypes.c_float, _c_void_p]
+         _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+         _c_int, _c_int, ctypes.c_float, _c_void_p]
 
 
 def build_work_list(page_table, seq_lens, page_size: int):
@@ -145,6 +146,15 @@ def paged_attention_flat_ref(q, k_pages, v_pages, flat_b, flat_page, flat_tok0,
 # Kernel wrapper
 
 
+def stats_smem_bytes(kv_mul: int, hd: int, ps: int, elem: int) -> int:
+    """Shared memory of one block of the kernel's first pass (`Layout` in
+    csrc/paged_attention.cu): the page's K rows (later the token groups'
+    partial sums), its V rows, each row padded by 16 bytes, the query heads
+    and the scores."""
+    kv = ps * (hd + 16 // elem) * elem
+    return max(kv, _WARPS * kv_mul * hd * 4) + kv + 4 * kv_mul * (hd + ps)
+
+
 def _check(q, kp, vp, meta, hd, ps, kv_mul):
     dev = q.device
     if not all(t.device == dev for t in (kp, vp, *meta)):
@@ -173,9 +183,9 @@ def _check(q, kp, vp, meta, hd, ps, kv_mul):
                          f"into 16-byte chunks that divide {_THREADS} threads")
     if kv_mul > _MAX_KV_MUL:
         raise ValueError(f"paged_attention_flat: kv_mul {kv_mul} > {_MAX_KV_MUL}")
-    if 8 * kv_mul * (hd + ps) > _SMEM_LIMIT:
+    if stats_smem_bytes(kv_mul, hd, ps, kp.element_size()) > _SMEM_LIMIT:
         raise ValueError(f"paged_attention_flat: kv_mul {kv_mul}, hd {hd}, page "
-                         f"size {ps} need more than 48 KB of shared memory")
+                         f"size {ps} need more than 227 KB of shared memory")
     if kp.data_ptr() % 16 or vp.data_ptr() % 16:
         raise ValueError("paged_attention_flat: pools must be 16-byte aligned")
 
@@ -203,15 +213,25 @@ def paged_attention_flat(q, k_pages, v_pages, flat_b, flat_page, flat_tok0,
     if seq_lens.shape != (B,) or n_items.numel() != 1:
         raise ValueError("paged_attention_flat: seq_lens must be [B] and "
                          "n_items [1]")
-    acc = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    max_items = flat_b.shape[0]
+    if max_items < 1:
+        raise ValueError("paged_attention_flat: the work list is empty (pad it "
+                         "as build_work_list does)")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    # per-item statistics of the first pass; the second merges them by row
+    part_acc = torch.empty((max_items, H, hd), **f32)
+    part_m = torch.empty((max_items, H), **f32)
+    part_l = torch.empty((max_items, H), **f32)
+    acc = torch.empty((B, H, hd), **f32)
+    m = torch.empty((B, H), **f32)
+    l = torch.empty((B, H), **f32)
     rc = build.entry(SOURCE, SOURCE, _ARGS)(
         q.data_ptr(), int(q.dtype == torch.bfloat16), kp.data_ptr(),
         vp.data_ptr(), int(kp.dtype == torch.bfloat16), flat_b.data_ptr(),
         flat_page.data_ptr(), flat_tok0.data_ptr(), n_items.data_ptr(),
-        seq_lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        B, H, KH, hd, ps, P, flat_b.shape[0], attention_scale(hd),
+        seq_lens.data_ptr(), part_acc.data_ptr(), part_m.data_ptr(),
+        part_l.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        B, H, KH, hd, ps, P, max_items, attention_scale(hd),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention_flat: kernel launch failed, CUDA error {rc}")

@@ -28,12 +28,17 @@ MODES = ("fast", "exact")
 # keeps that stage plus the 16 KB k-lane reduction under the 48 KB of
 # static shared memory a launch gets without opting in to more.
 _GEMV_MAX_STAGED_K = 8192
-# Both kernels split K until the grid gives every SM this many blocks.
+# The GEMV splits K until the grid gives every SM this many blocks.
 _BLOCKS_PER_SM = 4
 _GEMV_BLOCK_COLS = 256
-_GEMM_TILE = 64      # output tile edge (rows and columns)
-_GEMM_BK = 32        # K rows per step; a K split is a multiple of it
-_GEMM_MIN_SPLIT_K = 128
+# The GEMM's fast kernel: 128 weight columns and 8, 16, 32 or 64 x rows per
+# block, 64 K rows per ring stage (a K split is a multiple of it); the plan
+# splits K until the grid gives every SM about _GEMM_BLOCKS_PER_SM blocks,
+# with at least _GEMM_MIN_SPLIT_K rows in each split.
+_GEMM_BN = 128
+_GEMM_BK = 64
+_GEMM_BLOCKS_PER_SM = 3
+_GEMM_MIN_SPLIT_K = 256
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 _sm_count: dict = {}
@@ -125,12 +130,18 @@ def gemv_groups_per_split(K: int, N: int, g: int, sm_count: int) -> int:
     return max(1, min(gps, _GEMV_MAX_STAGED_K // g))
 
 
+def gemm_block_rows(M: int) -> int:
+    """x rows per block of the fast kernel: the smallest of 8, 16, 32 and
+    64 that covers M (more rows take more blocks)."""
+    return next((r for r in (8, 16, 32) if M <= r), 64)
+
+
 def gemm_k_per_split(M: int, K: int, N: int, sm_count: int) -> int:
     """K rows per split: enough splits that the grid gives every SM
-    _BLOCKS_PER_SM blocks, at least _GEMM_MIN_SPLIT_K rows each, in whole
-    steps of _GEMM_BK rows."""
-    tiles = -(-N // _GEMM_TILE) * -(-M // _GEMM_TILE)
-    splits = max(1, min(-(-_BLOCKS_PER_SM * sm_count // tiles),
+    _GEMM_BLOCKS_PER_SM blocks, at least _GEMM_MIN_SPLIT_K rows each, in
+    whole ring stages of _GEMM_BK rows."""
+    tiles = -(-N // _GEMM_BN) * -(-M // gemm_block_rows(M))
+    splits = max(1, min(-(-_GEMM_BLOCKS_PER_SM * sm_count // tiles),
                         K // _GEMM_MIN_SPLIT_K))
     return -(-K // (splits * _GEMM_BK)) * _GEMM_BK
 

@@ -203,6 +203,13 @@ class Engine:
     def _retire_slot(self, slot: int):
         pass
 
+    def _drop_slot(self, slot: int):
+        """Free an active slot: its request finished or was cancelled."""
+        self._retire_slot(slot)
+        del self.active[slot]
+        self._slot_budget.pop(slot, None)
+        self.done[slot] = True
+
     def _slot_capacity(self, slot: int) -> int:
         return self.max_len
 
@@ -221,6 +228,25 @@ class Engine:
         req = Request(prompt_ids=self.tokenizer.encode(text), **kw)
         self.submit(req)
         return req
+
+    def cancel(self, request_id: int) -> bool:
+        """Stop a request: a queued one leaves the queue, an active one gives
+        up its slot (and its pages on the PagedEngine) without finishing.
+        Returns whether the request was found."""
+        for i, req in enumerate(self.queue):
+            if req.request_id == request_id:
+                del self.queue[i]
+                return True
+        for slot, req in self.active.items():
+            if req.request_id == request_id:
+                self._drop_slot(slot)
+                return True
+        return False
+
+    def can_hold(self, req: Request) -> bool:
+        """Whether an idle engine could admit `req`; the dense cache holds
+        any request shorter than max_len."""
+        return True
 
     @property
     def n_active(self) -> int:
@@ -346,9 +372,8 @@ class Engine:
         self._pos_np = np.array(pos_np, np.int64)
         for slot, req in list(self.active.items()):
             if req.finished:  # finished during admission
-                self._retire_slot(slot)
+                self._drop_slot(slot)
                 finished.append(req)
-                del self.active[slot]
                 continue
             budget = self._slot_budget[slot]
             taken = 0
@@ -367,10 +392,8 @@ class Engine:
             capacity = int(pos_np[slot]) >= self._slot_capacity(slot) - 1
             if hit_stop or out_of_budget or capacity or bool(done_np[slot]):
                 req.finish_time = time.perf_counter()
-                self._retire_slot(slot)
+                self._drop_slot(slot)  # the slot is free for the next admit
                 finished.append(req)
-                del self.active[slot]
-                self.done[slot] = True  # the slot is free for the next admit
         return finished
 
 
@@ -420,6 +443,10 @@ class PagedEngine(Engine):
         self.allocator = PageAllocator(
             n_pages=n_pages, page_size=page_size, max_seqs=self.max_batch,
             max_len=self.max_len)
+        self._pool_pages = self.allocator.n_free_pages
+        # requests cancelled while their admission wave prefills; they give
+        # up their slots when the wave activates
+        self._cancel_after_wave: set = set()
 
     # ---- chunked admission (prefill/decode overlap)
 
@@ -504,6 +531,9 @@ class PagedEngine(Engine):
             first = sample_greedy(w["last_logits"])
             done = (first[:, None] == self._stop_arr[None, :]).any(dim=-1)
             self._activate(w["admits"], w["slots"], w["lens"], first, done)
+            for request_id in self._cancel_after_wave:
+                self.cancel(request_id)
+            self._cancel_after_wave.clear()
 
     def _init_cache(self):
         from ..kvcache import init_paged_cache
@@ -528,19 +558,35 @@ class PagedEngine(Engine):
             need += max(0, alloc.pages_needed(cap) - len(alloc.owned.get(s, ())))
         return need
 
+    def _pages_for(self, req: Request) -> int:
+        """Pages admission budgets for `req`: its whole lifetime
+        (reserve_growth) or its prompt (over-commit)."""
+        eff = len(self._effective_ids(req))
+        if not self.reserve_growth:
+            return self.allocator.pages_needed(eff)
+        remaining = max(req.max_new_tokens - len(req.out_ids), 0)
+        return self.allocator.pages_needed(min(eff + remaining + 1, self.max_len))
+
     def _can_admit(self, req: Request) -> bool:
         """Admit only if the pool holds this request's whole lifetime on top
         of every active slot's remaining growth (reserve_growth), or at
         least its prompt (over-commit; preemption is the backstop)."""
-        eff = len(self._effective_ids(req))
-        if not self.reserve_growth:
-            return (self.allocator.n_free_pages
-                    >= self.allocator.pages_needed(eff))
-        remaining = max(req.max_new_tokens - len(req.out_ids), 0)
-        cap = min(eff + remaining + 1, self.max_len)
-        free_after_growth = (self.allocator.n_free_pages
-                             - self._future_growth_pages())
-        return free_after_growth >= self.allocator.pages_needed(cap)
+        free = self.allocator.n_free_pages
+        if self.reserve_growth:
+            free -= self._future_growth_pages()
+        return free >= self._pages_for(req)
+
+    def can_hold(self, req: Request) -> bool:
+        """Whether the whole pool, empty, admits `req`: one that fails this
+        could never be served."""
+        return self._pages_for(req) <= self._pool_pages
+
+    def cancel(self, request_id: int) -> bool:
+        if self._wave is not None and any(
+                r.request_id == request_id for _, r in self._wave["admits"]):
+            self._cancel_after_wave.add(request_id)
+            return True
+        return super().cancel(request_id)
 
     def _reserve(self, slot: int, req: Request):
         eff = len(self._effective_ids(req))

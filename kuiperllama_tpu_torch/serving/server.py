@@ -9,8 +9,11 @@ Endpoints:
   POST /generate   {"prompt": str | "prompt_ids": [int],
                     "max_new_tokens": int=128}
       -> {"text": str?, "ids": [int], "ttft_ms": float, "tokens": int}
-         400 {"error": ...} for a request that fails validation
-  GET  /healthz    -> {"ok": true, "active": n, "queued": n}
+         400 {"error": ...} for a request that fails validation or is not
+             JSON; 504 when it times out (it is cancelled and its slot and
+             pages freed); 500 when the engine thread fails
+  GET  /healthz    -> {"ok": true, "active": n, "queued": n}, or 503 with
+                      the error once the engine thread has died
   GET  /metrics    -> served-request counters and TTFT/latency percentiles
                       over the last 512 completions
 
@@ -31,8 +34,12 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-from ..errors import check
+from ..errors import InvalidArgument, check
 from .engine import Engine, Request
+
+
+class EngineFailed(RuntimeError):
+    """The engine thread died; every waiting and later request fails."""
 
 
 class InferenceServer:
@@ -41,12 +48,16 @@ class InferenceServer:
     device."""
 
     def __init__(self, engine: Engine, tokenizer=None,
-                 poll_idle_s: float = 0.005):
+                 poll_idle_s: float = 0.005, timeout_s: float = 600.0):
         self.engine = engine
+        self.timeout_s = timeout_s  # a request's wait before it is cancelled
         self.tokenizer = tokenizer if tokenizer is not None \
             else engine.tokenizer
         self._q: "queue.Queue[tuple[Request, threading.Event]]" = queue.Queue()
+        self._cancel_q: "queue.Queue[int]" = queue.Queue()
         self._events = {}
+        # the exception that ended the engine thread, once it has
+        self.error: Optional[BaseException] = None
         self._lock = threading.Lock()
         self._poll = poll_idle_s
         self._stop = threading.Event()
@@ -60,6 +71,27 @@ class InferenceServer:
     # -- engine thread
 
     def _loop(self):
+        try:
+            self._serve()
+        except Exception as e:  # noqa: BLE001 (reported to every request)
+            self._fail(e)
+
+    def _fail(self, err: BaseException):
+        """Record the engine thread as dead and wake every waiting request,
+        queued or submitted; submit() then raises EngineFailed."""
+        with self._lock:
+            self.error = err
+            events = list(self._events.values())
+            self._events.clear()
+            while True:
+                try:
+                    events.append(self._q.get_nowait()[1])
+                except queue.Empty:
+                    break
+        for ev in events:
+            ev.set()
+
+    def _serve(self):
         eng = self.engine
         if eng.device.type == "cuda":
             # kernel wrappers launch on the current device's current stream
@@ -77,6 +109,15 @@ class InferenceServer:
                     self._events[req.request_id] = ev
                 eng.submit(req)
                 moved = True
+            # after the submissions: a request that timed out before it
+            # reached the engine is in its queue by now
+            while True:
+                try:
+                    request_id = self._cancel_q.get_nowait()
+                except queue.Empty:
+                    break
+                eng.cancel(request_id)
+                moved = True
             if eng.has_work:
                 for fin in eng.step():
                     with self._lock:
@@ -91,6 +132,12 @@ class InferenceServer:
                 moved = True
             if not moved:
                 time.sleep(self._poll)
+
+    @property
+    def alive(self) -> bool:
+        """The engine thread is running and has not failed."""
+        return (self.error is None and self._thread is not None
+                and self._thread.is_alive())
 
     def start(self):
         if self._thread is not None:
@@ -109,8 +156,9 @@ class InferenceServer:
     def validate(self, prompt_ids, max_new_tokens) -> Request:
         """The Request for a submission, or InvalidArgument: the prompt is
         non-empty and shorter than the engine's max_len, every id lies in
-        the vocabulary, and max_new_tokens >= 1. Nothing invalid reaches the
-        engine thread."""
+        the vocabulary, max_new_tokens >= 1, and an idle engine could admit
+        it (a PagedEngine's pool holds its pages). Nothing invalid reaches
+        the engine thread."""
         eng = self.engine
         check(isinstance(prompt_ids, (list, tuple)),
               "prompt_ids must be a list of ints")
@@ -124,10 +172,19 @@ class InferenceServer:
               f"prompt ids must lie in [0, {vocab})")
         check(isinstance(max_new_tokens, int) and not isinstance(max_new_tokens, bool)
               and max_new_tokens >= 1, "max_new_tokens must be an int >= 1")
-        return Request(prompt_ids=list(prompt_ids), max_new_tokens=max_new_tokens)
+        req = Request(prompt_ids=list(prompt_ids), max_new_tokens=max_new_tokens)
+        check(eng.can_hold(req),
+              f"{len(prompt_ids)} prompt + {max_new_tokens} new tokens need more "
+              "KV pages than the engine's pool holds")
+        return req
 
     def submit(self, prompt: Optional[str] = None, prompt_ids=None,
-               max_new_tokens: int = 128, timeout_s: float = 600.0) -> dict:
+               max_new_tokens: int = 128,
+               timeout_s: Optional[float] = None) -> dict:
+        """Generate for one request and wait for it (timeout_s, default the
+        server's): TimeoutError after cancelling it on timeout, EngineFailed
+        if the engine thread has died."""
+        timeout_s = self.timeout_s if timeout_s is None else timeout_s
         if prompt_ids is None:
             check(prompt is not None, "prompt or prompt_ids required")
             check(self.tokenizer is not None, "no tokenizer configured")
@@ -135,9 +192,18 @@ class InferenceServer:
         req = self.validate(prompt_ids, max_new_tokens)
         req.submit_time = time.perf_counter()  # TTFT includes the queue wait
         ev = threading.Event()
-        self._q.put((req, ev))
+        with self._lock:  # _fail drains the queue under the same lock
+            if self.error is not None:
+                raise EngineFailed(f"the engine thread failed: {self.error!r}")
+            self._q.put((req, ev))
         if not ev.wait(timeout_s):
-            raise TimeoutError(f"request {req.request_id} timed out")
+            with self._lock:
+                self._events.pop(req.request_id, None)
+            self._cancel_q.put(req.request_id)
+            raise TimeoutError(f"request {req.request_id} timed out after "
+                               f"{timeout_s} s and was cancelled")
+        if self.error is not None and not req.finished:
+            raise EngineFailed(f"the engine thread failed: {self.error!r}")
         out = dict(ids=list(req.out_ids), tokens=len(req.out_ids),
                    ttft_ms=round(req.ttft_s * 1e3, 1),
                    wall_ms=round((req.finish_time - req.submit_time) * 1e3, 1))
@@ -184,8 +250,14 @@ def make_http_server(inference: InferenceServer, host: str = "127.0.0.1",
         def do_GET(self):
             if self.path == "/healthz":
                 eng = inference.engine
-                self._json(200, {"ok": True, "active": eng.n_active,
-                                 "queued": len(eng.queue)})
+                if inference.alive:
+                    self._json(200, {"ok": True, "active": eng.n_active,
+                                     "queued": len(eng.queue)})
+                else:
+                    err = inference.error
+                    self._json(503, {"ok": False, "error": (
+                        f"{type(err).__name__}: {err}" if err is not None
+                        else "the engine thread is not running")})
             elif self.path == "/metrics":
                 self._json(200, inference.metrics())
             else:
@@ -205,7 +277,13 @@ def make_http_server(inference: InferenceServer, host: str = "127.0.0.1",
                     max_new_tokens=payload.get("max_new_tokens", 128))
                 self._json(200, out)
             except Exception as e:  # noqa: BLE001 (reported to the client)
-                self._json(400, {"error": f"{type(e).__name__}: {e}"})
+                if isinstance(e, (InvalidArgument, json.JSONDecodeError)):
+                    code = 400
+                elif isinstance(e, TimeoutError):
+                    code = 504
+                else:
+                    code = 500
+                self._json(code, {"error": f"{type(e).__name__}: {e}"})
 
     return ThreadingHTTPServer((host, port), Handler)
 

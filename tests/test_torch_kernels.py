@@ -178,10 +178,12 @@ def test_gemv_split_plan(K, N, g):
 def test_gemm_split_plan(M, K, N):
     kps = tqm.gemm_k_per_split(M, K, N, 132)
     splits = -(-K // kps)
-    assert kps % 32 == 0 and (splits - 1) * kps < K <= splits * kps
-    assert splits == 1 or kps >= 128
-    tiles = -(-N // 64) * -(-M // 64)
-    assert tiles * splits >= min(4 * 132, tiles * (K // 128)) // 2
+    assert kps % 64 == 0 and (splits - 1) * kps < K <= splits * kps
+    assert splits == 1 or kps >= 256
+    rows = tqm.gemm_block_rows(M)
+    assert rows >= min(M, 64) and (rows == 8 or rows // 2 < M)
+    tiles = -(-N // 128) * -(-M // rows)
+    assert tiles * splits >= min(3 * 132, tiles * (K // 256)) // 2
 
 
 def test_library_name_covers_every_header(tmp_path, monkeypatch):

@@ -121,6 +121,33 @@ def test_gemm_split_k_is_deterministic(dev):
     assert torch.equal(qm.quant_gemm(x, q, s, 256), qm.quant_gemm(x, q, s, 256))
 
 
+@pytest.mark.parametrize("M", [1, 8, 16, 33, 64, 128, 255])
+@pytest.mark.parametrize("K,N,g", [(4096, 4096, 256), (1088, 100, 64), (192, 200, 64),
+                                   (512, 24, 32), (640, 256, 8), (648, 264, 24)])
+@pytest.mark.parametrize("x_dtype,s_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32),
+])
+def test_gemm_fast_every_m_tile(dev, M, K, N, g, x_dtype, s_dtype):
+    """Fast mode at every block M tile (8, 16, 32, 64 rows; several tiles
+    past 64), on the vector route and on ragged N (scalar loads), with a
+    group size under 16 (scales read per k-row pair); deterministic."""
+    x, q, s = _operands(dev, M, K, N, g, x_dtype, s_dtype, seed=M + N)
+    got = qm.quant_gemm(x, q, s, g)
+    want = qm.quant_gemm_ref(x, q, s, g)
+    assert got.dtype == x_dtype and got.shape == (M, N)
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= (BF16_ULP if x_dtype == torch.bfloat16 else TOL["fast"])
+    assert torch.equal(qm.quant_gemm(x, q, s, g), got)
+
+
+def test_gemm_fast_ignores_scale_rows_past_k_over_g(dev):
+    x, q, s = _operands(dev, 8, 1024, 512, 64, torch.bfloat16, torch.bfloat16)
+    padded = torch.cat([s, torch.full((5, 512), float("nan"), device=dev,
+                                      dtype=s.dtype)])
+    assert torch.equal(qm.quant_gemm(x, q, padded, 64), qm.quant_gemm(x, q, s, 64))
+
+
 def test_wrappers_reject_bad_input(dev):
     x, q, s = _operands(dev, 1, 512, 256, 64, torch.float32, torch.float32)
     with pytest.raises(ValueError):
@@ -536,6 +563,42 @@ def test_paged_attention_matches_plain(dev, dtype, hd, kv_mul, ps):
     # deterministic: fixed-order sums, no atomics
     again = pa.paged_attention_flat(q, kp, vp, *work, sl, page_size=ps, layer_idx=1)
     assert all(torch.equal(a, b) for a, b in zip(again, (acc, m, l)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv_mul", [1, 7])
+def test_paged_attention_long_rows(dev, dtype, kv_mul):
+    """Rows of 0, 1 and 9 pages (the last partly filled) on 128-token pages;
+    deterministic."""
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+
+    lens = [0, 1, 9 * 128 - 50, 128]
+    q, (kp, vp), work, sl = _paged_case(dev, dtype, 128, kv_mul, 128, lens)
+    acc, m, l = pa.paged_attention_flat(q, kp, vp, *work, sl, page_size=128,
+                                        layer_idx=1)
+    ra, rm, rl = pa.paged_attention_flat_ref(q, kp, vp, *work, sl, page_size=128,
+                                             layer_idx=1)
+    rows = sl > 0
+    out, ref = (a[rows] / l_[rows][..., None] for a, l_ in ((acc, l), (ra, rl)))
+    assert _rel(out, ref) <= (1e-6 if dtype == torch.float32 else 1e-3)
+    assert _rel(m[rows], rm[rows]) <= 1e-6 and _rel(l[rows], rl[rows]) <= 1e-5
+    assert (m[~rows] == pa.NEG_INF).all() and (l[~rows] == 0).all()
+    again = pa.paged_attention_flat(q, kp, vp, *work, sl, page_size=128, layer_idx=1)
+    assert all(torch.equal(a, b) for a, b in zip(again, (acc, m, l)))
+
+
+def test_paged_attention_no_items(dev):
+    """n_items 0 (every row empty): every row gets the flash identity, and
+    the kernel reads n_items on the device."""
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+
+    q, (kp, vp), work, sl = _paged_case(dev, torch.bfloat16, 64, 4, 8, [0, 0, 0])
+    assert int(work[3].item()) == 0
+    before = pa.paged_attention_flat.launches
+    acc, m, l = pa.paged_attention_flat(q, kp, vp, *work, sl, page_size=8, layer_idx=0)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_flat.launches == before + 1
+    assert (acc == 0).all() and (l == 0).all() and (m == pa.NEG_INF).all()
 
 
 def test_paged_attention_one_layer_pool_and_mixed_dtypes(dev):
