@@ -24,7 +24,9 @@ last line:
      the Llama-2-7B main-path shapes, with CUDA-event times (median of 25
      launches) of the kernel, the plain version and one library call
      (x @ w_bf16 with the weight dequantized ahead of time: a yardstick the
-     port never calls), beside the least time the card could take.
+     port never calls), beside the least time the card could take; the GEMV
+     also at a ragged N, and at the five Llama-2-7B shapes with 4 and 8
+     column threads a warp at the plans for 2, 4 and 8 blocks per SM.
   4. fused kernel: the decode megakernel against its plain version on the
      card at TinyLlama-1.1B INT8 g 256, Llama-3.2-1B INT8 g 256,
      Qwen2.5-0.5B bf16 and TinyLlama-1.1B INT8 g 64 (int8 activations), full
@@ -292,6 +294,41 @@ def check_kernel(kind, dev, M, K, N, g, mode, seed, name="", scales="bfloat16"):
     return row
 
 
+def gemv_variants(dev, g=256):
+    """The GEMV's layout and plan, measured: at each GEMV_SHAPES shape (bf16
+    x and scales), CUDA-event times of the kernel with 4 and 8 column
+    threads a warp at the plans for 2, 4 and 8 blocks per SM, each launch
+    held against the plain version."""
+    import torch
+
+    from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
+    from kuiperllama_tpu_torch.utils.profiling import device_time, l2_copies
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for i, (name, K, N, _) in enumerate(GEMV_SHAPES):
+        x, q, s = operands(dev, 1, K, N, g, SEED + 90 + i)
+        xb, sb = x.to(torch.bfloat16), s.to(torch.bfloat16)
+        want = qm.quant_gemv_ref(xb, q, sb, g)
+        qs = [q] + [q.clone() for _ in range(l2_copies(K * N, dev) - 1)]
+        ct0 = qm.gemv_col_threads(K, N, g, sms)
+        us, ok = {}, True
+        for ct in (4, 8):
+            for bps in (2, 4, 8):
+                gps = qm.gemv_plan(K, N, g, sms, bps, ct)
+                launch = lambda x, q, s: qm.gemv_launch(x, q, s, g, gps, ct)
+                ok = ok and rel_err(launch(xb, q, sb), want) <= BF16_ULP
+                us[f"{ct} column threads, {bps} blocks/SM (gps {gps})"] = device_time(
+                    launch, variants=[(xb, qc, sb) for qc in qs], device="cuda") * 1e6
+        row = dict(phase="kernel_variants", kernel="quant_gemv", weight=name, K=K,
+                   N=N, g=g, plan_col_threads=ct0,
+                   plan_gps=qm.gemv_plan(K, N, g, sms, col_threads=ct0), us=us, ok=ok,
+                   card=CARD)
+        emit(row)
+        del qs
+        if not ok:
+            raise AssertionError(f"quant_gemv variant disagrees: {row}")
+
+
 def phase_kernels(dev):
     gemv, gemm = [], []
     for i, (name, K, N, per_token) in enumerate(GEMV_SHAPES):
@@ -299,6 +336,8 @@ def phase_kernels(dev):
                            name)
         gemv.append((row, per_token))
     check_kernel("quant_gemv", dev, 1, 4096, 4096, 64, "fast", SEED + 10)
+    check_kernel("quant_gemv", dev, 1, 1024, 1000, 64, "fast", SEED + 11, "ragged N")
+    gemv_variants(dev)
     for i, (name, K, N, _) in enumerate(GEMV_SHAPES[:4]):
         row = check_kernel("quant_gemm", dev, PREFILL_M, K, N, 256, "fast",
                            SEED + 20 + i, name)
@@ -1259,6 +1298,7 @@ def time_big_step(cfg, params, x0, kc, vc, p, sin, cos, variants, plain_n):
     L = cfg.n_layers
     trace = torch.zeros(2 + 5 * L, dtype=torch.int64, device=x0.device)
     fb.fused_decode_step_big(cfg, params, x0, kc, vc, p, sin, cos, trace=trace)
+
     phases = fd.phase_times(trace, L)
     nbytes = fused_step_bytes(cfg, params, int(p.item()), 2)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3

@@ -25,12 +25,16 @@ GEMM_SOURCE = "quant_gemm"
 MODES = ("fast", "exact")
 
 # The GEMV stages bf16(x) for its K range in shared memory as fp32; this cap
-# keeps that stage plus the 16 KB k-lane reduction under the 48 KB of
-# static shared memory a launch gets without opting in to more.
+# keeps that stage plus the 2 KB warp reduction under the 48 KB of static
+# shared memory a launch gets without opting in to more.
 _GEMV_MAX_STAGED_K = 8192
-# The GEMV splits K until the grid gives every SM this many blocks.
-_BLOCKS_PER_SM = 4
-_GEMV_BLOCK_COLS = 256
+# The GEMV: 4 or 8 column threads of 16 columns a warp (`gemv_col_threads`)
+# and up to 8 warps (one group each at a time) per block; the plan splits K
+# until the grid gives every SM about this many blocks, by layout
+# (chip_smoke.py's phase 3 sweeps 2, 4 and 8 for both: PERF.md).
+_GEMV_BLOCKS_PER_SM = {4: 4, 8: 8}
+_GEMV_WARPS = 8
+_GEMV_MIN_WARPS_PER_SM = 8
 # The GEMM's fast kernel: 128 weight columns and 8, 16, 32 or 64 x rows per
 # block, 64 K rows per ring stage (a K split is a multiple of it); the plan
 # splits K until the grid gives every SM about _GEMM_BLOCKS_PER_SM blocks,
@@ -42,6 +46,7 @@ _GEMM_MIN_SPLIT_K = 256
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 _sm_count: dict = {}
+_gemv_counters: dict = {}
 
 
 def dequantize_bf16(q: torch.Tensor, s: torch.Tensor, g: int) -> torch.Tensor:
@@ -113,21 +118,38 @@ def _check(x, q, s, g, name):
 
 
 _GEMV_ARGS = [_c_void_p, _c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
-              _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p]
+              _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+              _c_int, _c_void_p]
 _GEMM_ARGS = [_c_void_p, _c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
               _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
               _c_int, _c_void_p]
 
 
-def gemv_groups_per_split(K: int, N: int, g: int, sm_count: int) -> int:
-    """Groups per K split: enough splits that the grid gives every SM
-    _BLOCKS_PER_SM blocks, whole groups per split, and a staged K range
-    that fits the kernel's shared memory."""
+def gemv_col_threads(K: int, N: int, g: int, sm_count: int, vec: bool = True) -> int:
+    """Column threads per warp of the GEMV (16 contiguous bytes of a row
+    each): 8, or 4 when 8 would leave fewer than _GEMV_MIN_WARPS_PER_SM
+    one-group warps per SM (Llama-2-7B's wo). The ragged path takes 8."""
+    if vec and -(-N // 128) * (K // g) < _GEMV_MIN_WARPS_PER_SM * sm_count:
+        return 4
+    return 8
+
+
+def gemv_plan(K: int, N: int, g: int, sm_count: int,
+              blocks_per_sm: int | None = None, col_threads: int = 8) -> int:
+    """Groups per K split of the GEMV: enough splits that the grid of
+    16 x col_threads-column tiles gives every SM `blocks_per_sm` blocks,
+    whole groups per split, a multiple of the block's 8 warps once a split
+    holds more than 8 groups (so that every warp walks as many groups), and
+    a staged K range that fits the kernel's shared memory. blocks_per_sm
+    None takes the layout's measured target."""
     ng = K // g
-    col_blocks = -(-N // _GEMV_BLOCK_COLS)
-    want = max(1, -(-_BLOCKS_PER_SM * sm_count // col_blocks))
-    gps = -(-ng // min(ng, want))
-    return max(1, min(gps, _GEMV_MAX_STAGED_K // g))
+    blocks_per_sm = blocks_per_sm or _GEMV_BLOCKS_PER_SM[col_threads]
+    tiles = -(-N // (16 * col_threads))
+    splits = min(ng, max(1, -(-blocks_per_sm * sm_count // tiles)))
+    gps = -(-ng // splits)
+    if gps > _GEMV_WARPS:
+        gps = -(-gps // _GEMV_WARPS) * _GEMV_WARPS
+    return max(1, min(gps, ng, _GEMV_MAX_STAGED_K // g))
 
 
 def gemm_block_rows(M: int) -> int:
@@ -154,6 +176,41 @@ def _sms(device) -> int:
     return n
 
 
+def _counters(device, n: int) -> torch.Tensor:
+    """The GEMV's per-column-tile split counters: zero between launches (the
+    kernel leaves them at zero), kept per device."""
+    t = _gemv_counters.get(device.index)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
+        _gemv_counters[device.index] = t
+    return t
+
+
+def gemv_launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, g: int,
+                gps: int | None = None, col_threads: int | None = None) -> torch.Tensor:
+    """One launch of csrc/quant_gemv.cu on checked CUDA operands, uncounted:
+    `quant_gemv` calls it with the plan's layout and split, and
+    chip_smoke.py times other layouts and plans through it."""
+    K, N = q.shape
+    vec = N % 16 == 0 and q.data_ptr() % 16 == 0
+    sms = _sms(x.device)
+    ct = col_threads or gemv_col_threads(K, N, g, sms, vec)
+    gps = gps or gemv_plan(K, N, g, sms, col_threads=ct)
+    splits = -(-(K // g) // gps)
+    y = torch.empty((1, N), dtype=x.dtype, device=x.device)
+    partial = (torch.empty((splits, N), dtype=torch.float32, device=x.device)
+               if splits > 1 else y)
+    counters = _counters(x.device, -(-N // (16 * ct)))
+    rc = build.entry(GEMV_SOURCE, GEMV_SOURCE, _GEMV_ARGS)(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(),
+        s.data_ptr(), int(s.dtype == torch.bfloat16), y.data_ptr(),
+        partial.data_ptr(), counters.data_ptr(), K, N, g, gps, ct, int(vec),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"quant_gemv: kernel launch failed, CUDA error {rc}")
+    return y
+
+
 def quant_gemv(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                g: int) -> torch.Tensor:
     """x [1, K] @ dequant(q [K, N], s [K/g, N]) -> [1, N] in x's dtype."""
@@ -162,20 +219,7 @@ def quant_gemv(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     _check(x, q, s, g, "quant_gemv")
     if x.shape[0] != 1:
         raise ValueError(f"quant_gemv: x must have one row, got {tuple(x.shape)}")
-    K, N = q.shape
-    gps = gemv_groups_per_split(K, N, g, _sms(x.device))
-    splits = -(-(K // g) // gps)
-    y = torch.empty((1, N), dtype=x.dtype, device=x.device)
-    partial = (torch.empty((splits, N), dtype=torch.float32, device=x.device)
-               if splits > 1 else y)
-    vec = int(N % 16 == 0 and q.data_ptr() % 16 == 0)
-    rc = build.entry(GEMV_SOURCE, GEMV_SOURCE, _GEMV_ARGS)(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(),
-        s.data_ptr(), int(s.dtype == torch.bfloat16), y.data_ptr(),
-        partial.data_ptr(), K, N, g, gps, vec,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"quant_gemv: kernel launch failed, CUDA error {rc}")
+    y = gemv_launch(x, q, s, g)
     quant_gemv.launches += 1
     return y
 

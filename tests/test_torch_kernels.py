@@ -163,12 +163,16 @@ def test_layer_of_stack_is_a_view():
                                    (4096, 4096, 64), (128, 256, 64)])
 def test_gemv_split_plan(K, N, g):
     ng = K // g
-    gps = tqm.gemv_groups_per_split(K, N, g, 132)
+    ct = tqm.gemv_col_threads(K, N, g, 132)
+    gps = tqm.gemv_plan(K, N, g, 132, col_threads=ct)
     splits = -(-ng // gps)
     assert 1 <= gps <= ng and (splits - 1) * gps < ng <= splits * gps
     assert gps * g <= tqm._GEMV_MAX_STAGED_K
-    blocks = splits * -(-N // 256)
-    assert blocks >= min(4 * 132, ng * -(-N // 256)) // 2
+    # every warp of a block walks as many groups once a split outgrows it
+    assert gps <= tqm._GEMV_WARPS or gps % tqm._GEMV_WARPS == 0 or gps == ng
+    tiles = -(-N // (16 * ct))
+    blocks = splits * tiles
+    assert blocks >= min(4 * 132, ng * tiles) // 2
 
 
 @pytest.mark.parametrize("M,K,N", [(32, 4096, 12288), (32, 4096, 4096),

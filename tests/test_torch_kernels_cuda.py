@@ -45,7 +45,8 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("K,N,g", [
     (4096, 4096, 256), (4096, 12288, 256), (11008, 4096, 256),
-    (4096, 4096, 64), (256, 1000, 64), (512, 24, 32),
+    (4096, 22016, 256), (4096, 32000, 256),
+    (4096, 4096, 64), (256, 1000, 64), (512, 24, 32), (1024, 1000, 64),
 ])
 @pytest.mark.parametrize("x_dtype,s_dtype", [
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
@@ -63,6 +64,25 @@ def test_gemv_matches_plain(dev, K, N, g, x_dtype, s_dtype):
     assert _rel(got, want) <= tol
     # deterministic: the K splits reduce in a fixed order
     assert torch.equal(qm.quant_gemv(x, q, s, g), got)
+
+
+@pytest.mark.parametrize("K,N,g", [(4096, 4096, 256), (11008, 4096, 256),
+                                   (4096, 4096, 64), (1024, 1000, 64)])
+def test_gemv_every_layout_and_plan(dev, K, N, g):
+    """Every layout and plan the planner can pick holds to the plain version
+    and repeats bit for bit (the last block of a column tile sums the K
+    splits in split order), and the split counters are left at zero."""
+    x, q, s = _operands(dev, 1, K, N, g, torch.bfloat16, torch.bfloat16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = qm.quant_gemv_ref(x, q, s, g)
+    for ct in ((4, 8) if N % 16 == 0 else (8,)):
+        for bps in (2, 4, 8):
+            gps = qm.gemv_plan(K, N, g, sms, bps, ct)
+            a = qm.gemv_launch(x, q, s, g, gps, ct)
+            assert torch.equal(qm.gemv_launch(x, q, s, g, gps, ct), a)
+            assert _rel(a, want) <= BF16_ULP
+    torch.cuda.synchronize()
+    assert int(qm._counters(dev, 1).abs().sum()) == 0
 
 
 def test_gemv_ignores_scale_rows_past_k_over_g(dev):
@@ -370,6 +390,44 @@ def test_fused_big_wide(dev, g):
     assert _rel(x.cpu(), xr) <= 1e-2
     assert _rel(k[:, 100].cpu(), kr[:, 100]) <= 1e-2
     assert _rel(v[:, 100].cpu(), vr[:, 100]) <= 1e-2
+
+
+# chip_smoke.py BIG_CASES at full width, 2 layers: (preset, group size,
+# bf16 scales); held to the plain version on the card within FUSED_TOL's
+# 2-layer int8 limit, 5e-2
+@pytest.mark.parametrize("preset,g,s_bf16", [("llama2-7b", 64, True),
+                                             ("llama2-7b", 256, False),
+                                             ("llama3-8b", 64, True)])
+def test_fused_big_cases(dev, preset, g, s_bf16):
+    from kuiperllama_tpu_torch.config import preset_config
+    from kuiperllama_tpu_torch.fuse import fuse_params
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
+    from kuiperllama_tpu_torch.params import random_params_device
+    from kuiperllama_tpu_torch.quant import cast_scales
+
+    cfg = preset_config(preset, n_layers=2, seq_len=512)
+    params = random_params_device(cfg, device=dev, seed=1, quantize=True,
+                                  group_size=g)
+    if s_bf16:
+        params = cast_scales(params, torch.bfloat16)
+    params = fuse_params(params)
+    assert fb.plan_big(params["blocks"], torch.bfloat16, 256) is not None
+    before = fb.fused_decode_step_big.launches
+    x, k, v = _fused_run(cfg, params, dev, 100, 256, 512, torch.bfloat16,
+                         fb.fused_decode_step_big)
+    torch.cuda.synchronize()
+    assert fb.fused_decode_step_big.launches == before + 1
+    xr, kr, vr = _fused_run(cfg, params, dev, 100, 256, 512, torch.bfloat16,
+                            fb.fused_decode_step_big_ref)
+    assert torch.isfinite(x.float()).all()
+    assert _rel(x, xr) <= 5e-2
+    for got, want in ((k, kr), (v, vr)):
+        assert torch.equal(got[:, :100], want[:, :100])
+        for li in range(cfg.n_layers):
+            assert _rel(got[li, 100], want[li, 100]) <= 5e-2
+    x2, _, _ = _fused_run(cfg, params, dev, 100, 256, 512, torch.bfloat16,
+                          fb.fused_decode_step_big)
+    assert torch.equal(x2, x)
 
 
 def test_fused_big_trace_and_rejects(dev):
