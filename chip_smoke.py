@@ -32,7 +32,8 @@ last line:
      Qwen2.5-0.5B bf16 and TinyLlama-1.1B INT8 g 64 (int8 activations), full
      width and 2 layers, one step at pos 100 in a 256-slot window: error,
      CUDA-event times of the kernel and the plain version, the port's
-     layered eager step on the same weights, and the byte bound.
+     layered eager step on the same weights, the byte bound, and the
+     launch's plan (grid, blocks per SM, each phase's tiling).
   4b. big kernel: the big-model megakernel against its plain version on the
      card (and on the CPU) at Llama-2-7B INT8 g 64 with bf16 scales,
      Llama-2-7B g 256 with fp32 scales and Llama-3-8B g 64 (BIG_CASES), full
@@ -44,7 +45,8 @@ last line:
      the card at TinyLlama-1.1B INT8 g 256, Qwen2.5-0.5B bf16 and
      Llama-3.2-1B INT8 g 256 (CHUNK_CASES), 2 layers, CHUNK_STEPS steps from
      pos 100: tokens equal up to an exact logit tie, the chunk's K/V rows,
-     ms per step against the per-step bound (layer stack and lm_head).
+     ms per step against the per-step bound (layer stack and lm_head), and
+     the launch's plan.
   5. fixture: checkpoints/tinychar/tinychar.q8.bin, 24 greedy tokens on the
      card equal to the same run on the CPU (which uses the plain versions);
      the layered route with fp32 params, then the megakernel route
@@ -781,7 +783,7 @@ def phase_fused_kernel(dev):
                    bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms, step_bytes=nbytes,
-                   card=CARD)
+                   plan=fd.fused_decode_step.plan, card=CARD)
         emit(row)
         rows.append(row)
         del params, variants, cache, full_k, full_v
@@ -886,7 +888,7 @@ def phase_fused_main_path(dev, label, preset, quantize):
                 share_of_bound=max(bytes_ms, ops_ms) / ms,
                 traced_phase_us_per_layer=us_per_layer,
                 traced_final_norm_us=phases["final"], traced_total_us=phases["total"],
-                card=CARD)
+                plan=fd.fused_decode_step.plan, card=CARD)
     emit(step)
     if not step["ok"]:
         raise AssertionError(f"fused_decode disagrees with its plain version "
@@ -1432,7 +1434,7 @@ def time_chunk(cfg, params, x0, kc, vc, p, sin, cos, steps, variants, plain_n):
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms, step_bytes=nbytes,
-                share_of_bound=max(bytes_ms, ops_ms) / ms)
+                share_of_bound=max(bytes_ms, ops_ms) / ms, plan=fd.fused_decode_chunk.plan)
 
 
 def phase_fused_chunk_kernel(dev):
@@ -1947,7 +1949,7 @@ def kernels_line(gemv, gemm, fused_rows, fused_step, paged_rows, launches_by_pat
         library_ms=None,
         per="one TinyLlama-1.1B decode step: 22 layers, INT8 g 256, bf16 "
             "scales and cache, pos 100 in a 256-slot window",
-        launches_by_path=by_path("fused_decode"), card=CARD)
+        plan=fused_step["plan"], launches_by_path=by_path("fused_decode"), card=CARD)
     # per engine decode step of Llama-2-7B: one launch per layer at the
     # kernel phase's 7B shapes
     p7 = paged_rows[("llama2-7b", "bf16")]
@@ -1989,7 +1991,7 @@ def kernels_line(gemv, gemm, fused_rows, fused_step, paged_rows, launches_by_pat
         per=f"one TinyLlama-1.1B greedy step of a {CHUNK_STEPS}-step chunk: 22 "
             "layers and the lm_head, INT8 g 256, bf16 scales and cache, from "
             "pos 100 in a 256-slot window",
-        launches_by_path=by_path("fused_decode_chunk"), card=CARD)
+        plan=chunk_step["plan"], launches_by_path=by_path("fused_decode_chunk"), card=CARD)
     return {"kernels": [
         entry("quant_gemv", gemv, "kuiperllama_tpu/ops/pallas/quant_matmul.py:202",
               "one Llama-2-7B decode token: 32 x (wqkv, wo, w13, w2) + lm_head, "

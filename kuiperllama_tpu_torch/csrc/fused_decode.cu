@@ -45,9 +45,19 @@
 //     reads them as one 16-byte load per row;
 //   * K splits write fp32 partials; the last block of a tile to finish (an
 //     integer counter, no float atomics) sums them in split order and runs
-//     the phase's epilogue (bias, residual, SwiGLU).
-// This first version is simple on purpose: no TMA, no wgmma, and the
-// phase barriers drain the memory pipeline five times per layer.
+//     the phase's epilogue (bias, residual, SwiGLU);
+//   * the bf16-activation GEMVs turn int8 weights into fp32 by a byte
+//     permute into the mantissa of 2^23 (exact), not a conversion
+//     instruction, which runs at a quarter of the fp32 rate; the K splits'
+//     finish fences once per block, not once per thread.
+// The last two are the redesigns of this kernel that measured faster
+// (tools/fused_phase_costs.py times its fixed costs; PERF.md has the
+// readings, and the designs tried and not kept: counters in place of the
+// grid barriers with weights copied ahead, splits added by the consumers,
+// the rmsnorm from tile sums of squares, fewer K splits, the K/V history
+// prefetched into L2). No TMA and no
+// wgmma: the phase barriers still drain the memory pipeline five times per
+// layer.
 
 #include "fused_decode_common.cuh"
 

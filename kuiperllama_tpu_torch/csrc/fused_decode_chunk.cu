@@ -32,7 +32,8 @@
 // token outside the megakernel (the lm_head launch, the sampling ops and
 // the host's launching of each), at the cost of an in-kernel lm_head phase
 // and one more grid barrier for the argmax. Everything else is the per-step
-// kernel's design, simple first (no TMA, no wgmma).
+// kernel's design (fused_decode.cu), the split finish of the lm_head's tiles
+// included (one fence per block); no TMA, no wgmma.
 
 #include "fused_decode_common.cuh"
 
@@ -111,13 +112,15 @@ __device__ void lm_phase(const ChunkArgs& c, const Smem& sm) {
       if (mine) { v = sm.out[tid]; idx = col; }
     } else {
       if (mine) partial[(size_t)split * N + col] = sm.out[tid];
-      __threadfence();
       __syncthreads();
-      if (tid == 0) *flag = atomicAdd(counters + tile, 1u) == static_cast<unsigned>(splits - 1);
+      if (tid == 0) {  // one fence and count for the block, as finish_item
+        __threadfence();
+        *flag = atomicAdd(counters + tile, 1u) == static_cast<unsigned>(splits - 1);
+        if (*flag) __threadfence();
+      }
       __syncthreads();
       finish = *flag != 0;
       if (finish) {
-        __threadfence();
         if (mine) {
           float t = 0.f;
           for (int sp = 0; sp < splits; ++sp) t += __ldcg(partial + (size_t)sp * N + col);

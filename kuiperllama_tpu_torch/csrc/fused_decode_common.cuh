@@ -227,6 +227,16 @@ __device__ __forceinline__ void dp4a_quad(const int4* r, int a4, int* ip) {
   }
 }
 
+// int8 to fp32 exactly without a conversion instruction (those run at a
+// quarter of the fp32 rate, and the bf16-activation GEMVs convert every
+// weight byte): byte j of w, sign-flipped to q + 128, becomes the low
+// mantissa byte of 2^23, and 2^23 + 128 is subtracted (one byte permute and
+// one add a value, as csrc/quant_gemv.cu).
+__device__ __forceinline__ float i8f(unsigned w_flipped, int j) {
+  return __int_as_float(static_cast<int>(__byte_perm(w_flipped, 0x4B000000u, 0x7540 + j))) -
+         8388736.f;
+}
+
 // acc[j] (this thread's columns) over rows [row0, row1) of one layer's weight.
 template <int KIND>
 __device__ __forceinline__ void gemv_accumulate(
@@ -266,9 +276,12 @@ __device__ __forceinline__ void gemv_accumulate(
         for (int k = kl; k < g; k += klanes) {
           const float xv = hs[kb + k];
           const int4 v = __ldg(reinterpret_cast<const int4*>(q + (size_t)(kb + k) * N + col0));
-          const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+          const unsigned w[4] = {static_cast<unsigned>(v.x) ^ 0x80808080u,
+                                 static_cast<unsigned>(v.y) ^ 0x80808080u,
+                                 static_cast<unsigned>(v.z) ^ 0x80808080u,
+                                 static_cast<unsigned>(v.w) ^ 0x80808080u};
 #pragma unroll
-          for (int j = 0; j < 16; ++j) part[j] = fmaf(xv, static_cast<float>(b[j]), part[j]);
+          for (int j = 0; j < 16; ++j) part[j] = fmaf(xv, i8f(w[j / 4], j % 4), part[j]);
         }
 #pragma unroll
         for (int j = 0; j < 16; ++j) acc[j] = fmaf(part[j], sc[j], acc[j]);
@@ -418,7 +431,9 @@ __device__ Proj proj_geom(const FusedArgs& a, int proj) {
 // the epilogue runs on the block's own tile; otherwise the item's fp32
 // partials go to `partial` and the last block of the tile to finish (an
 // integer counter, no float atomics) sums the splits in split order and
-// runs the epilogue.
+// runs the epilogue. After a block barrier one thread fences and counts for
+// the block (as CUTLASS's semaphores do), instead of a fence in every
+// thread.
 __device__ __forceinline__ void finish_item(const FusedArgs& a, int proj, int layer,
                                             bool first, int tile, int split, int splits,
                                             int W, int ncols, int halves, const Smem& sm) {
@@ -435,12 +450,14 @@ __device__ __forceinline__ void finish_item(const FusedArgs& a, int proj, int la
   if (tid < W && col < ncols)
     for (int h = 0; h < halves; ++h)
       partial[((size_t)split * halves + h) * ncols + col] = sm.out[h * W + tid];
-  __threadfence();
   __syncthreads();
-  if (tid == 0) *flag = atomicAdd(counters + tile, 1u) == static_cast<unsigned>(splits - 1);
+  if (tid == 0) {
+    __threadfence();
+    *flag = atomicAdd(counters + tile, 1u) == static_cast<unsigned>(splits - 1);
+    if (*flag) __threadfence();
+  }
   __syncthreads();
   if (*flag) {
-    __threadfence();
     if (tid < W && col < ncols) {
       float v[2] = {0.f, 0.f};
       for (int h = 0; h < halves; ++h) {

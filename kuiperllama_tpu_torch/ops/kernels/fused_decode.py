@@ -547,13 +547,15 @@ PHASES = ("qkv", "attention", "wo", "gate_up", "w2")
 
 
 def step_args(who, cfg, params, x0, k_cache, v_cache, pos, sin, cos, flags,
-              grid_for, extra=None, trace=None):
+              grid_for, extra=None, trace=None, grid=None):
     """Check a megakernel launch's inputs and fill its `_Args`.
 
     flags: the (qkv, wo, gate/up, w2) activation types; grid_for(w_kind,
     smem) -> blocks per SM; extra(grid) -> (fp32 partials, tile counters)
-    that a phase beyond the layer stack needs. Returns (args, x_out, tensors the
-    launch reads that must outlive this call's locals)."""
+    that a phase beyond the layer stack needs; grid: the launch's blocks
+    (default: every block that fits, at most two per SM; a grid beyond
+    what fits is refused by the cooperative launch). Returns (args, x_out,
+    tensors the launch reads that must outlive this call's locals)."""
     dev = x0.device
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"{who}: x0 is on {dev}, the current device is "
@@ -606,7 +608,8 @@ def step_args(who, cfg, params, x0, k_cache, v_cache, pos, sin, cos, flags,
              params["final_norm"].float().contiguous()]
 
     smem = smem_bytes(max(d, hidden), A, hd)
-    grid = min(grid_for(w_kind, smem), _MAX_BLOCKS_PER_SM) * _sms(dev)
+    if grid is None:
+        grid = min(grid_for(w_kind, smem), _MAX_BLOCKS_PER_SM) * _sms(dev)
     parts, tiles = extra(grid) if extra else (0, 0)
     plans = []
     for name, ncols, halves in (("wqkv", n_qkv, 1), ("wo", d, 1),
@@ -670,15 +673,43 @@ def step_args(who, cfg, params, x0, k_cache, v_cache, pos, sin, cos, flags,
     return a, x_out, (bias, norms)
 
 
+def plan_summary(a, device, lm=None) -> dict:
+    """A launch's grid, blocks per SM and each GEMV phase's plan from its
+    `_Args`: column threads, units per split, column tiles and K splits;
+    lm: the chunk kernel's lm_head as (ct, ups, vocab, kind, group size)."""
+    cpt = _COLS_PER_THREAD[a.w_kind]
+    phases = {}
+    for i, (name, K, ncols) in enumerate((
+            ("qkv", a.d, (a.H + 2 * a.KH) * a.hd), ("wo", a.H * a.hd, a.d),
+            ("gate_up", a.d, a.hidden), ("w2", a.hidden, a.d))):
+        ct, ups = a.col_threads[i], a.units_per_split[i]
+        unit = a.g if a.w_kind == W_INT8 else (
+            _DENSE_UNIT_ROWS if K % _DENSE_UNIT_ROWS == 0 else K)
+        phases[name] = dict(ct=ct, ups=ups, tiles=-(-ncols // (ct * cpt)),
+                            splits=-(-(K // unit) // ups))
+    if lm is not None:
+        ct, ups, V, kind, g = lm
+        unit = g if kind == W_INT8 else (
+            _DENSE_UNIT_ROWS if a.d % _DENSE_UNIT_ROWS == 0 else a.d)
+        phases["lm_head"] = dict(ct=ct, ups=ups,
+                                 tiles=-(-V // (ct * _COLS_PER_THREAD[kind])),
+                                 splits=-(-(a.d // unit) // ups))
+    return dict(grid=a.grid, blocks_per_sm=a.grid / _sms(device),
+                smem_bytes=a.smem_bytes, phases=phases)
+
+
 def fused_decode_step(cfg, params, x0, k_cache, v_cache, pos, sin, cos,
-                      trace=None):
+                      trace=None, grid=None):
     """One decode step of the whole layer stack for B = 1 (see the module
     docstring for the contract). CPU tensors take the plain version; CUDA
     tensors launch csrc/fused_decode.cu once, or raise.
 
     trace: optional int64 CUDA tensor of 2 + 5 L elements; the kernel writes
     the card's global timer (ns) at its start, after each phase of each
-    layer (PHASES order) and at its end. `phase_times` reads it."""
+    layer (PHASES order) and at its end. `phase_times` reads it. grid: the
+    launch's blocks (tests run blocks that take several items; default
+    every block that fits, at most two per SM). `fused_decode_step.plan`
+    holds the last launch's `plan_summary`."""
     if x0.device.type == "cpu":
         return fused_decode_step_ref(cfg, params, x0, k_cache, v_cache, pos,
                                      sin, cos)
@@ -692,12 +723,13 @@ def fused_decode_step(cfg, params, x0, k_cache, v_cache, pos, sin, cos,
         "fused_decode_step", cfg, params, x0, k_cache, v_cache, pos, sin, cos,
         gemv_int8_flags(blocks, nt),
         lambda kind, smem: blocks_per_sm(SOURCE, occ, x0.device, kind, smem),
-        trace=trace)
+        trace=trace, grid=grid)
     rc = launch(ctypes.byref(a), torch.cuda.current_stream(x0.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_decode_step: cooperative launch failed, "
                            f"CUDA error {rc}")
     fused_decode_step.launches += 1
+    fused_decode_step.plan = plan_summary(a, x0.device)
     return x_out, k_cache, v_cache
 
 
@@ -716,6 +748,7 @@ def phase_times(trace: torch.Tensor, n_layers: int) -> dict:
 
 
 fused_decode_step.launches = 0
+fused_decode_step.plan = None
 
 
 # ---------------------------------------------------------------------------
@@ -817,13 +850,15 @@ class _ChunkArgs(ctypes.Structure):
 
 
 def fused_decode_chunk(cfg, params, x0, k_cache, v_cache, pos, sin, cos,
-                       steps: int):
+                       steps: int, grid=None):
     """`steps` greedy decode iterations for B = 1 in one launch of
     csrc/fused_decode_chunk.cu. x0 [1, d] is the embedding of the current
     token at slot `pos`; the caller guarantees pos + steps <= A (the cache
     window). Returns (tokens int32 [steps] on the device: the greedy
     continuation, k_cache, v_cache), the chunk's K/V rows written in place.
-    CPU tensors take the plain version; CUDA tensors launch or raise."""
+    CPU tensors take the plain version; CUDA tensors launch or raise.
+    grid: the launch's blocks, as `fused_decode_step`'s;
+    `fused_decode_chunk.plan` holds the last launch's `plan_summary`."""
     if x0.device.type == "cpu":
         return fused_decode_chunk_ref(cfg, params, x0, k_cache, v_cache, pos,
                                       sin, cos, steps)
@@ -866,7 +901,7 @@ def fused_decode_chunk(cfg, params, x0, k_cache, v_cache, pos, sin, cos,
         who, cfg, params, x0, k_cache, v_cache, pos, sin, cos,
         gemv_int8_flags(blocks, nt),
         lambda kind, smem: blocks_per_sm(CHUNK_SOURCE, occ, dev, kind, smem),
-        extra=lm_extra)
+        extra=lm_extra, grid=grid)
     ct, ups, tiles = lm_plan
     tokens = torch.empty(steps, dtype=torch.int32, device=dev)
     c = _ChunkArgs()
@@ -884,7 +919,9 @@ def fused_decode_chunk(cfg, params, x0, k_cache, v_cache, pos, sin, cos,
     if rc != 0:
         raise RuntimeError(f"{who}: cooperative launch failed, CUDA error {rc}")
     fused_decode_chunk.launches += 1
+    fused_decode_chunk.plan = plan_summary(a, dev, (ct, ups, V, lm_kind, lm_g))
     return tokens, k_cache, v_cache
 
 
 fused_decode_chunk.launches = 0
+fused_decode_chunk.plan = None

@@ -27,6 +27,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 
 import torch
@@ -64,17 +65,44 @@ def variant_source(name: str) -> str:
     return src.replace(old, new)
 
 
+def build_variants(jobs: dict) -> dict:
+    """nvcc every job at once, one process each, with the kernels' flags and
+    `-Xptxas -v`. jobs: {tag: (source, files)}, where `files` maps file
+    names to texts: `<source>.cu` and any header variant, written to a
+    directory of the tag's own under the build directory. A quoted include
+    finds a header there first, else in csrc/. Returns {tag: (the loaded
+    library, ptxas's report: the most registers of any kernel and the spill
+    bytes of all of them)}."""
+    procs = {}
+    for tag, (source, files) in jobs.items():
+        d = build.BUILD_DIR / "variants" / tag
+        d.mkdir(parents=True, exist_ok=True)
+        for fname, text in files.items():
+            (d / fname).write_text(text)
+        lib = d / f"lib{source}.so"
+        cmd = [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(build.CSRC),
+               "-o", str(lib), str(d / f"{source}.cu")]
+        procs[tag] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True), lib)
+    out, errors = {}, []
+    for tag, (proc, lib) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for variant {tag}:\n{log}")
+            continue
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", log))
+        out[tag] = (ctypes.CDLL(str(lib)), dict(max_registers=max(regs, default=0),
+                                                spill_bytes=spills))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
+
+
 def build_variant(name: str) -> ctypes.CDLL:
-    """nvcc the variant into the build directory (with the kernels' flags)."""
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = build.BUILD_DIR / f"big_phase_costs_{name}.cu"
-    src.write_text(variant_source(name))
-    lib = src.with_suffix(".so")
-    out = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
-                          "-o", str(lib), str(src)], capture_output=True, text=True)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvcc failed for variant {name}:\n{out.stdout}{out.stderr}")
-    return ctypes.CDLL(str(lib))
+    """nvcc the big kernel's variant `name` into the build directory."""
+    files = {f"{fb.SOURCE}.cu": variant_source(name)}
+    return build_variants({f"big_{name}": (fb.SOURCE, files)})[f"big_{name}"][0]
 
 
 def run(dev, layers: int) -> list:

@@ -312,6 +312,42 @@ def test_fused_decode_trace(dev):
     assert all(v >= 0 for v in times.values()) and times["total"] > 0
 
 
+# At a forced small grid every block takes several items of each phase, and
+# a tile's K splits land on blocks that finish in any order (the split
+# counter picks the last, which adds them in split order); held to the plain
+# version within chip_smoke's 2-layer FUSED_TOL (2e-2 with bf16 activations,
+# 5e-2 where a GEMV requantizes to int8), bit for bit again.
+SMALL_GRID_CASES = [("llama2", "int8_bf16s", 64), ("llama2", "int8", 8),
+                    ("qwen2", "bf16", 0), ("qwen2", "fp32", 0)]
+
+
+def _fused_tol(fd, params):
+    nt = fd.plan_tiles(params["blocks"], torch.bfloat16, 256)
+    return 5e-2 if any(fd.gemv_int8_flags(params["blocks"], nt)) else 2e-2
+
+
+@pytest.mark.parametrize("grid", [8, 33])
+@pytest.mark.parametrize("family,kind,g", SMALL_GRID_CASES)
+def test_fused_decode_small_grid(dev, grid, family, kind, g):
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+
+    cfg, params = _fused_case(dev, family, kind, g)
+    kernel = lambda *a: fd.fused_decode_step(*a, grid=grid)
+    x, k, v = _fused_run(cfg, params, dev, 37, 256, 512, torch.bfloat16, kernel)
+    torch.cuda.synchronize()
+    assert fd.fused_decode_step.plan["grid"] == grid
+    xr, kr, vr = _fused_run(cfg, params, dev, 37, 256, 512, torch.bfloat16,
+                            fd.fused_decode_step_ref)
+    tol = _fused_tol(fd, params)
+    assert torch.isfinite(x.float()).all() and _rel(x, xr) <= tol
+    for got, want in ((k, kr), (v, vr)):
+        assert torch.equal(got[:, :37], want[:, :37])
+        assert torch.equal(got[:, 38:], want[:, 38:])
+        assert _rel(got[:, 37], want[:, 37]) <= tol
+    x2, k2, _ = _fused_run(cfg, params, dev, 37, 256, 512, torch.bfloat16, kernel)
+    assert torch.equal(x2, x) and torch.equal(k2, k)
+
+
 def test_fused_decode_rejects_bad_input(dev):
     from kuiperllama_tpu_torch.models import decoder
     from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
@@ -493,12 +529,12 @@ def _chunk_run(cfg, params, dev, pos, steps, cache_dtype, fn, **kw):
     return toks.cpu().tolist(), full_k, full_v
 
 
-def _hold_chunk(cfg, params, dev, pos, steps, cache_dtype):
+def _hold_chunk(cfg, params, dev, pos, steps, cache_dtype, kernel=None):
     from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
 
     before = fd.fused_decode_chunk.launches
     got, k, v = _chunk_run(cfg, params, dev, pos, steps, cache_dtype,
-                           fd.fused_decode_chunk)
+                           kernel or fd.fused_decode_chunk)
     torch.cuda.synchronize()
     assert fd.fused_decode_chunk.launches == before + 1
     logits = []
@@ -533,6 +569,26 @@ def test_fused_chunk_matches_plain(dev, family, kind, g, lm_quant, cache, pos):
     got = _hold_chunk(cfg, params, dev, pos, 16, cache)
     again, _, _ = _chunk_run(cfg, params, dev, pos, 16, cache, fd.fused_decode_chunk)
     assert again == got  # fixed-order reductions: the same tokens every run
+
+
+@pytest.mark.parametrize("grid", [8, 33])
+@pytest.mark.parametrize("family,kind,g,lm_quant", [
+    ("llama2", "int8_bf16s", 64, True), ("llama2", "int8", 8, True),
+    ("qwen2", "bf16", 0, False), ("qwen2", "int8", 32, False),
+])
+def test_fused_chunk_small_grid(dev, grid, family, kind, g, lm_quant):
+    """Several items a block in every phase and the lm_head, across 16
+    steps: tokens and rows held as at the default grid, the same tokens and
+    rows again."""
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+
+    cfg, params = _chunk_case(dev, family, kind, g, lm_quant)
+    kernel = lambda *a: fd.fused_decode_chunk(*a, grid=grid)
+    got = _hold_chunk(cfg, params, dev, 37, 16, torch.bfloat16, kernel)
+    assert fd.fused_decode_chunk.plan["grid"] == grid
+    again, k2, _ = _chunk_run(cfg, params, dev, 37, 16, torch.bfloat16, kernel)
+    _, k1, _ = _chunk_run(cfg, params, dev, 37, 16, torch.bfloat16, kernel)
+    assert again == got and torch.equal(k1, k2)
 
 
 def test_fused_chunk_int8_lm_head(dev):
