@@ -13,11 +13,13 @@ last line:
      bf16 tensor-core matmul) at their default sizes; the three tool kernels
      held against their plain versions and timed beside their bounds:
      exp_stream at the five TinyLlama-1.1B shapes over the JAX tool's tiles
-     that divide them (equal), exp_outscale and the GEMM (exp_kernel's
-     `current`) there at M = 8 (within 2^-7; yardstick bf16 x @ the
-     pre-dequantized weight), exp_int8 in its six modes held at L 2 and on
-     the tool's own L 64 stack (1e-5, nodot equal) and timed there; the GEMM
-     at bench_kernels' shapes (Llama-2-7B, M = 8, g 64, fp32 scales); then
+     that divide them (equal; beside the floor of one empty launch),
+     exp_outscale and the GEMM (exp_kernel's `current`) there at M = 8
+     (within 2^-7; yardsticks bf16 x @ the pre-dequantized weight and the
+     GEMM), each probe's device kernels per call (one); exp_int8 in its
+     six modes held at L 2 and on the tool's own L 64 stack (1e-5, nodot
+     equal) and timed there; the GEMM at bench_kernels' shapes (Llama-2-7B,
+     M = 8, g 64, fp32 scales); then
      the tools' entry points (exp_kernel, exp_int8, bench_kernels at
      Llama-2-7B M = 8, kernel and torch variants) with exact launch counts.
   3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -1489,9 +1491,12 @@ def hold_exp_kernel(dev):
     TinyLlama-1.1B shape (equal to its plain version; lm_head has none),
     exp_outscale at each shape's sweep tiles and the tool's `current` (the
     GEMM: bf16 x, fp32 scales, g 64) at M = 8 (both within 2^-7), then
-    times: kernel, plain version, and the yardstick (torch.sum of q in int32
-    for the stream; bf16 x @ the pre-dequantized bf16 weight for outscale)
-    beside the bound, on weight copies rotated past L2."""
+    times: kernel, plain version, and the yardsticks (torch.sum of q in
+    int32 for the stream, beside the floor: one empty launch through the
+    same library; for outscale bf16 x @ the pre-dequantized bf16 weight and
+    the port's GEMM on the same operands) beside the bound, on weight copies
+    rotated past L2; and the device kernels of one call of each probe
+    (torch.profiler over 10 calls: one kernel a call)."""
     import torch
 
     from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
@@ -1501,6 +1506,12 @@ def hold_exp_kernel(dev):
     def ms(fn, variants, iters=25):
         return device_time(fn, variants=variants, iters=iters, device="cuda") * 1e3
 
+    def kernels_per_call(fn, calls=10):
+        fn()
+        by_name, _ = device_profile(lambda: [fn() for _ in range(calls)])
+        return {k[:60]: n / calls for k, (_, n) in by_name.items()}
+
+    floor_ms = ms(lambda: ek.empty_launch(dev), [()])
     stream, outscale = [], []
     for i, (name, (K, N)) in enumerate(ek.SHAPES.items()):
         x, q, s = tool_operands(dev, K, N, SEED + 70 + i)
@@ -1517,6 +1528,8 @@ def hold_exp_kernel(dev):
                        ms=ms(lambda qq: ek.exp_stream(qq, tk, tn), qs),
                        plain_ms=ms(lambda qq: ek.stream_ref(qq, tk, tn), qs, 10),
                        yardstick_ms=ms(lambda qq: torch.sum(qq, dtype=torch.int32), qs),
+                       floor_ms=floor_ms,
+                       kernels_per_call=kernels_per_call(lambda: ek.exp_stream(q, tk, tn)),
                        bound_ms=K * N / HBM_BYTES_PER_S * 1e3, bound_by="bytes", card=CARD)
             emit(row)
             stream.append(row)
@@ -1548,6 +1561,8 @@ def hold_exp_kernel(dev):
                    ms=ms(lambda qq: ek.exp_outscale(x, qq, s, tk, tn), qs),
                    plain_ms=ms(lambda qq: ek.outscale_ref(x, qq, s, tk, tn), qs, 10),
                    library_ms=ms(torch.matmul, wds),
+                   gemm_ms=ms(lambda qq: qm.quant_gemm(x, qq, s, ek.G), qs),
+                   kernels_per_call=kernels_per_call(lambda: ek.exp_outscale(x, q, s, tk, tn)),
                    bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations", card=CARD)
         emit(row)
@@ -1889,6 +1904,7 @@ def tool_entries(tool_rows, launches):
               bound_by="bytes",
               # torch.sum reads the same bytes but computes another value
               library_ms=None, yardstick_ms=total(st, "yardstick_ms"),
+              floor_ms=total(st, "floor_ms"),
               per="one sweep of the TinyLlama-1.1B shapes that have a stream tile, "
                   "each at its first: " + ", ".join(
                       f"{r['weight']} {r['tk']}x{r['tn']}" for r in st)),
@@ -1896,6 +1912,7 @@ def tool_entries(tool_rows, launches):
               max_abs_err=max(r["max_abs_err"] for r in os_), ms=total(os_, "ms"),
               plain_ms=total(os_, "plain_ms"), bound_ms=total(os_, "bound_ms"),
               bound_by="bytes", library_ms=total(os_, "library_ms"),
+              gemm_ms=total(os_, "gemm_ms"),
               per="one sweep of the five TinyLlama-1.1B shapes at M = 8, bf16 x, "
                   "fp32 scales: " + ", ".join(
                       f"{r['weight']} {r['tk']}x{r['tn']}" for r in os_)),

@@ -14,10 +14,12 @@ Each row is one JSON line with the median us of one call (CUDA events,
 the GB/s of the bytes the variant must move: q for stream; x, q, the fp32
 scales and the output for the matmuls.
 
-This module also holds the two kernels' wrappers and plain versions. A
-wrapper takes its plain version for a tensor that lies on the CPU and, for
-a CUDA tensor, launches its kernel or raises; `exp_stream.launches` and
-`exp_outscale.launches` count kernel launches.
+This module also holds the two kernels' wrappers, plain versions and
+split plans. A wrapper takes its plain version for a tensor that lies on
+the CPU and, for a CUDA tensor, launches its kernel or raises;
+`exp_stream.launches` and `exp_outscale.launches` count kernel launches
+(one a call). `stream_launch` and `outscale_launch` reach the kernels
+uncounted at any split plan (tools/probe_costs.py times them).
 
     python -m kuiperllama_tpu_torch.tools.exp_kernel [--device cuda|cpu]
         [--shapes KxN,...]
@@ -40,7 +42,11 @@ from . import ITERS, add_device_arg, device_name, resolve_device
 SOURCE = "exp_kernel"
 G = 64
 M_DECODE = 8
-MAX_M = 16  # the outscale kernel pads M to one 16-row WMMA tile
+MAX_M = 16  # the outscale kernel's x^T is one or two n8 mma tiles
+OUTSCALE_BN = 128  # weight columns per outscale block
+# the least blocks per SM each kernel's split plan gives a shape's grid
+OUTSCALE_BLOCKS_PER_SM = 2
+STREAM_BLOCKS_PER_SM = 2
 SHAPES = {"wqkv": (2048, 2560), "wo": (2048, 2048), "w13": (2048, 11264),
           "w2": (5632, 2048), "lm_head": (2048, 32000)}
 # the stream probe's (tk, tn) tiles, in the JAX tool's order
@@ -48,10 +54,13 @@ STREAM_TILES = [(2048, 512), (1024, 512), (512, 512), (2048, 1024),
                 (1024, 1024), (512, 2048)]
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
-_STREAM_ARGS = [_c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int,
-                _c_int, _c_int, _c_void_p]
-_OUTSCALE_ARGS = [_c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p,
-                  _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_void_p]
+_STREAM_ARGS = [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
+                _c_int, _c_int, _c_int, _c_int, _c_void_p]
+_OUTSCALE_ARGS = [_c_void_p, _c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
+                  _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+                  _c_int, _c_void_p]
+_sm_count: dict = {}
+_counters: dict = {}
 
 
 def _stream_check(q: torch.Tensor, tk: int, tn: int):
@@ -74,6 +83,28 @@ def outscale_tiles(K: int, N: int, tk: int = 2048, tn: int = 512):
     return tk, tn
 
 
+def split_bounds(n: int, r: int):
+    """The r + 1 boundaries of n rows (or groups) split r ways as the kernels
+    split them: part i is [i n // r, (i + 1) n // r), sizes within one."""
+    return [i * n // r for i in range(r + 1)]
+
+
+def outscale_plan(K: int, N: int, tk: int, sms: int,
+                  blocks_per_sm: int = OUTSCALE_BLOCKS_PER_SM) -> int:
+    """Splits r of each k-tile's tk / 64 groups: the fewest that give the
+    grid of 128-column tiles x k-tiles x r blocks_per_sm blocks per SM, at
+    most one split a group."""
+    blocks = -(-N // OUTSCALE_BN) * (K // tk)
+    return max(1, min(tk // G, -(-blocks_per_sm * sms // blocks)))
+
+
+def stream_plan(K: int, N: int, tk: int, tn: int, sms: int,
+                blocks_per_sm: int = STREAM_BLOCKS_PER_SM) -> int:
+    """Row splits r of each (tk, tn) tile: the fewest that give the grid of
+    tiles x r blocks_per_sm blocks per SM, at most one split a row."""
+    return max(1, min(tk, -(-blocks_per_sm * sms // ((K // tk) * (N // tn)))))
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 
@@ -90,11 +121,11 @@ def stream_ref(q: torch.Tensor, tk: int, tn: int) -> torch.Tensor:
     return acc.reshape(1, 1)
 
 
-def outscale_ref(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
-                 tk: int = 2048, tn: int = 512) -> torch.Tensor:
-    """bf16 [M, N]: per k-tile, the fp32 products of bf16 x and bf16 q over
+def outscale_sums(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                  tk: int = 2048, tn: int = 512) -> torch.Tensor:
+    """fp32 [M, N]: per k-tile, the fp32 products of bf16 x and bf16 q over
     each 64-row group, scaled by the group's row of s and summed; the
-    k-tiles added in order; rounded once to bf16."""
+    k-tiles added in order."""
     M, K = x.shape
     N = q.shape[1]
     tk, tn = outscale_tiles(K, N, tk, tn)
@@ -105,7 +136,13 @@ def outscale_ref(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     acc = torch.zeros((M, N), dtype=torch.float32, device=x.device)
     for t in tiles:
         acc = acc + t
-    return acc.to(torch.bfloat16)
+    return acc
+
+
+def outscale_ref(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                 tk: int = 2048, tn: int = 512) -> torch.Tensor:
+    """bf16 [M, N]: `outscale_sums` rounded once to bf16."""
+    return outscale_sums(x, q, s, tk, tn).to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -124,23 +161,74 @@ def _on_current_cuda(name, *ts):
         raise ValueError(f"{name}: operands must be contiguous")
 
 
+def sm_count(device) -> int:
+    n = _sm_count.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_count[device.index] = n
+    return n
+
+
+def _counters_for(device, n: int) -> torch.Tensor:
+    """The kernels' split counters, kept per device and zero between
+    launches (the kernels reset them): calls on one stream share them, two
+    streams must not."""
+    t = _counters.get(device.index)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
+        _counters[device.index] = t
+    return t
+
+
+def stream_launch(q: torch.Tensor, tk: int, tn: int, r: int | None = None) -> torch.Tensor:
+    """One launch of the stream kernel on checked CUDA operands with r row
+    splits a tile, uncounted: `exp_stream` calls it with `stream_plan`'s."""
+    K, N = q.shape
+    r = r or stream_plan(K, N, tk, tn, sm_count(q.device))
+    partial = torch.empty((N // tn, (K // tk) * r), dtype=torch.int32, device=q.device)
+    out = torch.empty((1, 1), dtype=torch.float32, device=q.device)
+    vec = int(tn % 16 == 0 and N % 16 == 0 and q.data_ptr() % 16 == 0)
+    rc = build.entry(SOURCE, "exp_stream", _STREAM_ARGS)(
+        q.data_ptr(), partial.data_ptr(), _counters_for(q.device, 1).data_ptr(),
+        out.data_ptr(), K, N, tk, tn, r, vec,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"exp_stream: kernel launch failed, CUDA error {rc}")
+    return out
+
+
 def exp_stream(q: torch.Tensor, tk: int, tn: int) -> torch.Tensor:
     """The stream probe of q int8 [K, N] in (tk, tn) tiles -> [1, 1] fp32."""
     if q.device.type == "cpu":
         return stream_ref(q, tk, tn)
     _stream_check(q, tk, tn)
     _on_current_cuda("exp_stream", q)
-    K, N = q.shape
-    partial = torch.empty((K // tk, N // tn), dtype=torch.int32, device=q.device)
-    out = torch.empty((1, 1), dtype=torch.float32, device=q.device)
-    vec = int(tn % 16 == 0 and N % 16 == 0 and q.data_ptr() % 16 == 0)
-    rc = build.entry(SOURCE, "exp_stream", _STREAM_ARGS)(
-        q.data_ptr(), partial.data_ptr(), out.data_ptr(), K, N, tk, tn, vec,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"exp_stream: kernel launch failed, CUDA error {rc}")
+    out = stream_launch(q, tk, tn)
     exp_stream.launches += 1
     return out
+
+
+def outscale_launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, tk: int,
+                    r: int | None = None) -> torch.Tensor:
+    """One launch of the outscale kernel on checked CUDA operands with each
+    k-tile's groups split r ways, uncounted: `exp_outscale` calls it with
+    `outscale_plan`'s."""
+    M, K = x.shape
+    N = q.shape[1]
+    r = r or outscale_plan(K, N, tk, sm_count(x.device))
+    splits = K // tk * r
+    y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+               if splits > 1 else y)
+    vec = int(x.data_ptr() % 16 == 0 and s.data_ptr() % 16 == 0)
+    rc = build.entry(SOURCE, "exp_outscale", _OUTSCALE_ARGS)(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(), s.data_ptr(),
+        int(s.dtype == torch.bfloat16), partial.data_ptr(),
+        _counters_for(x.device, -(-N // OUTSCALE_BN)).data_ptr(), y.data_ptr(),
+        M, K, N, tk, r, vec, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"exp_outscale: kernel launch failed, CUDA error {rc}")
+    return y
 
 
 def exp_outscale(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -165,22 +253,35 @@ def exp_outscale(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     if M > MAX_M or N % 64 or q.data_ptr() % 16:
         raise ValueError(f"exp_outscale: the kernel takes M <= {MAX_M}, N a "
                          f"multiple of 64 and a 16-byte aligned q; got M {M}, N {N}")
-    xp = torch.zeros((MAX_M, K), dtype=torch.bfloat16, device=x.device)
-    xp[:M] = x
-    partial = torch.empty((K // tk, M, N), dtype=torch.float32, device=x.device)
-    y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    rc = build.entry(SOURCE, "exp_outscale", _OUTSCALE_ARGS)(
-        xp.data_ptr(), q.data_ptr(), s.data_ptr(), int(s.dtype == torch.bfloat16),
-        partial.data_ptr(), y.data_ptr(), M, K, N, tk,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"exp_outscale: kernel launch failed, CUDA error {rc}")
+    y = outscale_launch(x, q, s, tk)
     exp_outscale.launches += 1
     return y
 
 
 exp_stream.launches = 0
 exp_outscale.launches = 0
+
+
+def coop_cluster_probe(device, blocks: int = 16, cluster: int = 2) -> dict:
+    """Whether one cudaLaunchKernelEx takes the cooperative attribute and a
+    cluster dimension together on this card: the launch's CUDA error code,
+    and whether every block then read its cluster neighbour's shared
+    memory and met the others at a grid barrier."""
+    flags = torch.zeros(blocks + 1, dtype=torch.int32, device=device)
+    rc = build.entry(SOURCE, "exp_coop_cluster", [_c_void_p, _c_int, _c_int, _c_void_p])(
+        flags.data_ptr(), blocks, cluster, torch.cuda.current_stream(device).cuda_stream)
+    torch.cuda.synchronize(device)
+    return dict(blocks=blocks, cluster=cluster, launch_error=rc,
+                accepted=rc == 0, all_blocks_met=rc == 0 and int(flags[-1]) == blocks)
+
+
+def empty_launch(device) -> None:
+    """One launch of an empty kernel through this library's ctypes path,
+    uncounted: the fixed floor of a probe's call (tools/probe_costs.py)."""
+    rc = build.entry(SOURCE, "exp_empty", [_c_void_p])(
+        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"exp_empty: kernel launch failed, CUDA error {rc}")
 
 
 # ---------------------------------------------------------------------------

@@ -753,6 +753,11 @@ def test_paged_attention_rejects_bad_input(dev):
 @pytest.mark.parametrize("K,N,tk,tn", [
     (2048, 2560, 2048, 512), (2048, 2048, 512, 512), (5632, 2048, 512, 2048),
     (4096, 1024, 1024, 1024), (256, 48, 128, 16), (96, 40, 32, 8),  # scalar loads
+    # every JAX stream tile at the TinyLlama-1.1B shapes it divides
+    (2048, 2560, 1024, 512), (2048, 2560, 512, 512), (2048, 2048, 2048, 512),
+    (2048, 2048, 1024, 512), (2048, 2048, 2048, 1024), (2048, 2048, 1024, 1024),
+    (2048, 2048, 512, 2048), (2048, 11264, 2048, 512), (2048, 11264, 512, 512),
+    (2048, 11264, 2048, 1024), (5632, 2048, 512, 512),
 ])
 def test_exp_stream_equals_plain(dev, K, N, tk, tn):
     from kuiperllama_tpu_torch.tools import exp_kernel as ek
@@ -766,18 +771,40 @@ def test_exp_stream_equals_plain(dev, K, N, tk, tn):
     assert got.shape == (1, 1) and got.dtype == torch.float32
     assert torch.equal(got, ek.stream_ref(q, tk, tn))
     assert torch.equal(got.cpu(), ek.stream_ref(q.cpu(), tk, tn))
+    # other split plans, down to one row a split, give the same value
+    sms = ek.sm_count(dev)
+    for r in {1, ek.stream_plan(K, N, tk, tn, sms, 4), tk}:
+        assert torch.equal(ek.stream_launch(q, tk, tn, r), got)
+    assert ek.exp_stream.launches == before + 1
 
 
-@pytest.mark.parametrize("M", [1, 8])
+@pytest.mark.parametrize("N,tn", [(40, 8), (48, 16), (2048, 512)])
+def test_exp_stream_unaligned_q_takes_scalar_loads(dev, N, tn):
+    from kuiperllama_tpu_torch.tools import exp_kernel as ek
+
+    K, tk = 512, 128
+    rng = np.random.default_rng(N)
+    flat = torch.from_numpy(rng.integers(-128, 128, K * N + 1).astype(np.int8)).to(dev)
+    q = flat[1:].view(K, N)  # one byte past a 16-byte boundary
+    assert q.data_ptr() % 16 == 1
+    got = ek.exp_stream(q, tk, tn)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ek.stream_ref(q, tk, tn))
+    for r in (1, 7, tk):
+        assert torch.equal(ek.stream_launch(q, tk, tn, r), got)
+
+
+@pytest.mark.parametrize("M", [1, 7, 8, 16])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("s_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("K,N,tk,tn", [
     (2048, 2560, 2048, 512), (5632, 2048, 512, 512), (2048, 32000, 2048, 256),
-    (1024, 256, 256, 128),
+    (1024, 256, 256, 128), (1024, 192, 1024, 64),  # tk = K; a ragged 128-column tile
 ])
-def test_exp_outscale_matches_plain(dev, M, s_dtype, K, N, tk, tn):
+def test_exp_outscale_matches_plain(dev, M, x_dtype, s_dtype, K, N, tk, tn):
     from kuiperllama_tpu_torch.tools import exp_kernel as ek
 
-    x, q, s = _operands(dev, M, K, N, 64, torch.bfloat16, s_dtype, seed=M + K)
+    x, q, s = _operands(dev, M, K, N, 64, x_dtype, s_dtype, seed=M + K)
     before = ek.exp_outscale.launches
     got = ek.exp_outscale(x, q, s, tk, tn)
     torch.cuda.synchronize()
@@ -785,6 +812,69 @@ def test_exp_outscale_matches_plain(dev, M, s_dtype, K, N, tk, tn):
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
     assert _rel(got, ek.outscale_ref(x, q, s, tk, tn)) <= BF16_ULP
     assert torch.equal(ek.exp_outscale(x, q, s, tk, tn), got)
+    for r in (1, tk // 64):  # other split plans: the same sums within one ulp
+        assert _rel(ek.outscale_launch(x, q, s, tk, r), got) <= BF16_ULP
+
+
+def test_exp_outscale_extra_scale_rows_and_unaligned_x(dev):
+    from kuiperllama_tpu_torch.tools import exp_kernel as ek
+
+    M, K, N, tk = 8, 1024, 512, 512
+    x, q, s = _operands(dev, M, K, N, 64, torch.float32, torch.float32, seed=3)
+    want = ek.exp_outscale(x, q, s, tk, 256)
+    extra = torch.cat([s, torch.full((5, N), float("nan"), device=dev)])
+    assert torch.equal(ek.exp_outscale(x, q, extra, tk, 256), want)
+    flat = torch.empty(M * K + 1, device=dev)
+    xu = flat[1:].view(M, K)  # 4 bytes past a 16-byte boundary: scalar x loads
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 == 4
+    assert torch.equal(ek.exp_outscale(xu, q, s, tk, 256), want)
+    torch.cuda.synchronize()
+
+
+def _device_kernels(fn, calls=8):
+    """The device kernels torch.profiler records over `calls` calls of fn:
+    {name: launches}. The profiler can lose a ctypes launch's record, so a
+    count may fall short of the calls, never exceed them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    return names
+
+
+@pytest.mark.parametrize("probe", ["stream", "outscale"])
+def test_exp_probes_launch_one_kernel_a_call(dev, probe):
+    from kuiperllama_tpu_torch.tools import exp_kernel as ek
+
+    x, q, s = _operands(dev, 8, 2048, 2560, 64, torch.bfloat16, torch.float32)
+    if probe == "stream":
+        fn, counter = (lambda: ek.exp_stream(q, 2048, 512)), ek.exp_stream
+    else:
+        fn, counter = (lambda: ek.exp_outscale(x, q, s, 2048, 512)), ek.exp_outscale
+    before, calls = counter.launches, 8
+    names = _device_kernels(fn, calls)
+    assert counter.launches == before + calls + 1
+    assert len(names) == 1, names
+    (name, n), = names.items()
+    assert f"{probe}_kernel" in name and 0 < n <= calls, names
+
+
+def test_exp_coop_cluster_probe_answers(dev):
+    from kuiperllama_tpu_torch.tools import exp_kernel as ek
+
+    out = ek.coop_cluster_probe(dev)
+    assert out["accepted"] == (out["launch_error"] == 0)
+    if out["accepted"]:
+        assert out["all_blocks_met"], out
 
 
 def test_exp_outscale_rejects_what_the_kernel_does_not_take(dev):
