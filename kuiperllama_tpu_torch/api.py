@@ -4,7 +4,7 @@ The surface of the reference's `model::Model` (init / predict / forward /
 encode / decode / is_sentence_ending / embedding):
 
     model = KuiperModel.from_checkpoint("m.q8.bin", "tokenizer.model",
-                                        family="llama2")
+                                        family="llama2")  # or an HF dir
     model.init()                       # weights onto the card (bf16)
     text = model.generate("hi", 128)   # batched prefill, chunked decode
     ids = model.encode("hi"); model.decode(ids)
@@ -23,6 +23,7 @@ import torch
 
 from .config import ModelConfig
 from .errors import InvalidArgument, ModelParseError, PathNotValid, check
+from .fuse import fuse_params
 from .models import decoder
 from .params import to_device
 from .serving.generate import GenerateResult, Generator
@@ -44,16 +45,24 @@ class KuiperModel:
     def from_checkpoint(cls, model_path: str, tokenizer_path: Optional[str] = None,
                         family: str = "llama2", quantized: Optional[bool] = None,
                         ) -> "KuiperModel":
-        """A llama2.c `.bin` (v0 fp32 or v3 int8) and optional tokenizer."""
+        """A llama2.c `.bin` (v0 fp32 or v3 int8) or an HF model directory
+        (config.json + *.safetensors; `family` and `quantized` then come
+        from config.json), and an optional tokenizer."""
         if not os.path.exists(model_path):
             raise PathNotValid(model_path)
         if os.path.isdir(model_path):
-            raise ModelParseError(
-                f"{model_path} is a directory: HF checkpoints need "
-                "checkpoint/hf.py, which the port has not ported yet")
-        from .checkpoint.binfmt import load_bin
+            from .checkpoint.hf import load_hf
 
-        cfg, params = load_bin(model_path, family=family, quantized=quantized)
+            try:
+                cfg, params = load_hf(model_path)
+            except (FileNotFoundError, KeyError, ValueError) as e:
+                raise ModelParseError(
+                    f"{model_path}: not an HF checkpoint directory that "
+                    f"checkpoint/hf.py loads ({e!r})") from e
+        else:
+            from .checkpoint.binfmt import load_bin
+
+            cfg, params = load_bin(model_path, family=family, quantized=quantized)
         tok = None
         if tokenizer_path:
             if not os.path.exists(tokenizer_path):
@@ -72,8 +81,11 @@ class KuiperModel:
     def init(self, dtype=torch.bfloat16, device="cuda",
              cache_len: Optional[int] = None):
         """Place the weights on `device` (float weights in `dtype`, norms in
-        fp32, INT8 weights as they are) and build the dense-cache Generator."""
-        self.params = to_device(self._raw_params, device=device, dtype=dtype)
+        fp32, INT8 weights as they are), fuse qkv and gate/up as the demo
+        does (the Generator's B = 1 megakernel routes need fused weights)
+        and build the dense-cache Generator."""
+        self.params = fuse_params(to_device(self._raw_params, device=device,
+                                            dtype=dtype))
         self._generator = Generator(self.cfg, self.params, self.tokenizer,
                                     cache_len=cache_len)
         return self

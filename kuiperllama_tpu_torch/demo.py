@@ -3,14 +3,19 @@
 Usage:
   python -m kuiperllama_tpu_torch.demo --model model.bin --tokenizer tok.model \
       [--family llama2|llama3|qwen2] [--prompt "a"] [--steps 128] \
-      [--temperature 0.0] [--dtype bf16|f32] [--device cuda|cpu]
+      [--temperature 0.0] [--dtype bf16|f32] [--device cuda|cpu] [--no-kernels]
 
-Accepts .bin (v0 fp32 / v3 int8) checkpoints. Prints the generated text and
-steps/s. On a CUDA device the INT8 projections run the port's kernels; on
-the CPU they run the kernels' plain PyTorch versions.
+Accepts .bin (v0 fp32 / v3 int8) checkpoints or an HF model directory
+(config.json + *.safetensors). Prints the generated text and steps/s. On a
+CUDA device the INT8 projections run the port's kernels; on the CPU they
+run the kernels' plain PyTorch versions. `--no-kernels` (the counterpart of
+demo/infer.py's `--no-pallas`) sends the INT8 projections to
+`ops.linear.quant_matmul_plain` and keeps the decode megakernels off, on
+any device.
 """
 
 import argparse
+import os
 import sys
 import time
 
@@ -29,21 +34,38 @@ def main(argv=None):
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
     ap.add_argument("--cache-len", type=int, default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--no-kernels", action="store_true",
+                    help="INT8 projections through the plain PyTorch "
+                         "matmul, no megakernel")
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as decode chunks land instead of "
                          "at the end")
     args = ap.parse_args(argv)
 
+    from .ops.linear import set_use_kernels
+
+    set_use_kernels(not args.no_kernels)
+    try:
+        _run(args)
+    finally:
+        set_use_kernels(True)
+
+
+def _run(args):
     import torch
 
     from .checkpoint.binfmt import load_bin
+    from .checkpoint.hf import load_hf
     from .fuse import fuse_params
     from .params import to_device
     from .serving.generate import Generator
     from .tokenizer import load_tokenizer
 
     t0 = time.perf_counter()
-    cfg, params = load_bin(args.model, family=args.family)
+    if os.path.isdir(args.model):
+        cfg, params = load_hf(args.model)
+    else:
+        cfg, params = load_bin(args.model, family=args.family)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     params = fuse_params(to_device(params, device=args.device, dtype=dtype))
     tok = load_tokenizer(args.tokenizer, family=cfg.family,

@@ -6,6 +6,10 @@ route decides the rounding:
     one plain matmul (the JAX package does this in XLA, outside any kernel);
   * rows == 1, fast mode, K // g <= GEMV_MAX_GROUPS: the GEMV kernel;
   * every other INT8 case: the GEMM kernel.
+`set_use_kernels(False)` (the demo's `--no-kernels`, the counterpart of the
+JAX switch `set_use_pallas`) sends the INT8 projections below
+PREFILL_DEQUANT_ROWS rows to `quant_matmul_plain` instead, on any device.
+Nothing turns it off on its own.
 """
 
 from __future__ import annotations
@@ -19,6 +23,32 @@ from .kernels.quant_matmul import dequantize_bf16, quant_gemm, quant_gemv
 PREFILL_DEQUANT_ROWS = 256
 # kuiperllama_tpu/ops/pallas/quant_matmul.py `_DIAG_MAX_GROUPS`
 GEMV_MAX_GROUPS = 64
+
+_USE_KERNELS = True
+
+
+def set_use_kernels(flag: bool):
+    """Whether INT8 projections below PREFILL_DEQUANT_ROWS rows take the
+    kernels (the default) or `quant_matmul_plain`."""
+    global _USE_KERNELS
+    _USE_KERNELS = flag
+
+
+def kernels_on() -> bool:
+    return _USE_KERNELS
+
+
+def quant_matmul_plain(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
+    """x [..., K] @ int8 [K, N] with group scales [K // g, N], a port of
+    kuiperllama_tpu/ops/linear.py `_quant_matmul_xla`: per-group fp32
+    partials of x against q, scaled in fp32 and summed over the groups,
+    rounded once to x's dtype."""
+    g = w.group_size
+    K, N = w.q.shape
+    ng = K // g
+    xg = x.reshape(*x.shape[:-1], ng, g).float()
+    partial = torch.einsum("...ng,ngo->...no", xg, w.q.reshape(ng, g, N).float())
+    return (partial * w.s[:ng].float()).sum(dim=-2).to(x.dtype)
 
 
 def _dequant_dot(x2: torch.Tensor, w: QuantTensor) -> torch.Tensor:
@@ -49,6 +79,8 @@ def _quant_linear(x: torch.Tensor, w: QuantTensor, mode: str) -> torch.Tensor:
     x2 = x.reshape(-1, K).contiguous()
     if x2.shape[0] >= PREFILL_DEQUANT_ROWS:
         out = _dequant_dot(x2, w)
+    elif not _USE_KERNELS:
+        out = quant_matmul_plain(x2, w)
     else:
         out = quant_kernel(x2, w.q, w.s, w.group_size, mode)
     return out.reshape(*x.shape[:-1], N)

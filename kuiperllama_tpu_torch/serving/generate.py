@@ -37,6 +37,7 @@ import torch
 
 from ..config import ModelConfig
 from ..models import decoder
+from ..ops import linear as linear_mod
 from ..ops import tuning
 from ..ops.kernels.fused_decode import (fits_vmem, fused_decode_chunk,
                                         fused_decode_step)
@@ -170,8 +171,9 @@ class Generator:
     device that holds `params`.
 
     fused_step: the B = 1 decode megakernels. None (auto) takes them when
-    the params lie on a CUDA device and the model fits a plan
-    (KT_FUSED_STEP=0/1 overrides auto); True forces them (on the CPU that
+    the params lie on a CUDA device, the model fits a plan and the kernels
+    are on (`ops.linear.set_use_kernels`; KT_FUSED_STEP=0/1 overrides
+    auto); True forces them (on the CPU that
     runs their plain versions, as the tests do); False turns them off."""
 
     def __init__(self, cfg: ModelConfig, params, tokenizer=None,
@@ -205,7 +207,8 @@ class Generator:
         env = tuning.fused_step_env()
         if env is not None:
             return structural and env
-        return structural and self.device.type == "cuda"
+        return (structural and linear_mod.kernels_on()
+                and self.device.type == "cuda")
 
     def generate_batch_ids(
         self,

@@ -1,10 +1,19 @@
-"""The port's kernel-measurement tools, counterparts of the repo-root JAX
-tools of the same names:
+"""The port's tools, counterparts of the repo-root JAX tools of the same
+names. Kernel measurement:
 
     python -m kuiperllama_tpu_torch.tools.roofline       # HBM, GEMV and tensor-core probes
     python -m kuiperllama_tpu_torch.tools.exp_kernel     # int8 stream / GEMM / outscale at M = 8
     python -m kuiperllama_tpu_torch.tools.exp_int8       # GEMV formulations over an int8 stack
     python -m kuiperllama_tpu_torch.tools.bench_kernels  # INT8 matmul GB/s at a preset's shapes
+
+Checkpoints and quality:
+
+    python -m kuiperllama_tpu_torch.tools.export         # HF dir / --random -> .bin v0/v3
+    python -m kuiperllama_tpu_torch.tools.ppl            # the |delta ppl| <= 0.1 gate
+    python -m kuiperllama_tpu_torch.tools.gate_group     # the gate on the tinychar fixtures
+    python -m kuiperllama_tpu_torch.tools.hf_parity      # logits and tokens against transformers
+
+`export` runs on the host only.
 
 Each takes `--device` (default cuda). Without a card a cuda run exits
 non-zero; it never falls back to the CPU. `--device cpu` runs the kernels'

@@ -123,3 +123,39 @@ def test_scan_covers_the_measurement_tools():
     assert not [n for n in got if _banned(n)]
     assert _banned("tools.roofline") and _banned("tools")
     assert not _banned("kuiperllama_tpu_torch.tools.roofline")
+
+
+def test_scan_covers_the_user_facing_modules():
+    """The HF loader, the perplexity gate and its tools, the exporter and
+    the parity oracle are scanned, and so is bench_torch.py; transformers
+    is imported inside hf_parity's main only, and no module reads
+    PROBES.json or a TPU constant of bench.py."""
+    scanned = {f.relative_to(PKG).as_posix() for f, _ in _port_sources()}
+    assert {"checkpoint/hf.py", "evaluate.py", "tools/ppl.py", "tools/gate_group.py",
+            "tools/export.py", "tools/hf_parity.py"} <= scanned
+    bench = REPO / "bench_torch.py"
+    assert not [n for n in _modules(bench, []) if _banned(n)]
+    tree = ast.parse((PKG / "tools" / "hf_parity.py").read_text())
+    top = {a.name.split(".")[0] for node in tree.body if isinstance(node, ast.Import)
+           for a in node.names}
+    top |= {node.module.split(".")[0] for node in tree.body
+            if isinstance(node, ast.ImportFrom) and node.module}
+    assert "transformers" not in top
+    assert "transformers" in set(_modules(PKG / "tools" / "hf_parity.py",
+                                          ["kuiperllama_tpu_torch", "tools"]))
+    for path in [bench, *(PKG / p for p in ("evaluate.py", "tools/gate_group.py"))]:
+        text = path.read_text()
+        assert "PROBES.json" not in text and "_FALLBACK_PROBES" not in text
+        assert "15.6" not in text and "819" not in text
+
+
+def test_fresh_interpreter_imports_bench_torch_without_jax():
+    code = ("import sys, bench_torch\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{BANNED!r}]\n"
+            "assert not bad, bad\n"
+            "assert 'triton' not in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
