@@ -234,7 +234,12 @@ def probe(dev, mxu: bool) -> dict:
 
 def bench_decode(args, cfg, params, dev, probes) -> dict:
     """B = args.batch greedy decode through the Generator: one warm-up, then
-    the best of three runs of args.steps tokens."""
+    the best of three runs of args.steps tokens. On the card the decode
+    steps replay CUDA graphs (the Generator's default); the warm-up's 8
+    tokens open the 256-slot attention window that the timed runs read at
+    the default lengths (32 + 128 tokens), so its first step captures the
+    step graph and no timed run includes a capture
+    (`graph_captures_timed` counts any that does)."""
     import torch
 
     from kuiperllama_tpu_torch.serving.generate import Generator
@@ -244,6 +249,7 @@ def bench_decode(args, cfg, params, dev, probes) -> dict:
     prompts = [list(range(5, 5 + args.prompt_len))] * args.batch
     t0 = time.perf_counter()
     gen.generate_batch_ids(prompts, max_new_tokens=8)
+    captures = gen.graph_cache.n_captures
     if args.verbose:
         print(f"[bench] warmup {time.perf_counter() - t0:.1f}s", file=sys.stderr)
 
@@ -284,6 +290,9 @@ def bench_decode(args, cfg, params, dev, probes) -> dict:
         "effective_GBps": round(best * step_bytes / args.batch / 1e9, 1),
         "probes": probes,
         "launches_per_run": launches,
+        "decode_graphs": gen.graphs_on(),
+        "graph_capture_s": round(gen.graph_cache.capture_s, 4),
+        "graph_captures_timed": gen.graph_cache.n_captures - captures,
         "device": _device_name(dev),
     }
 
@@ -576,6 +585,9 @@ def bench_engine(args, cfg, params, dev, probes) -> dict:
         "hbm_budget_gb": round(budget / 1e9, 2) if budget is not None else None,
         "probes": probes,
         "launches_per_run": launches,
+        "decode_graphs": eng.graph_cache is not None,
+        "graph_capture_s": (round(eng.graph_cache.capture_s, 4)
+                            if eng.graph_cache is not None else None),
         "device": _device_name(dev),
     }
     if (eng.prefill_wall_s > 0 and eng.prefill_padded_tokens

@@ -8,6 +8,12 @@ last line:
   1. device: the card's name, power limit and count; fails without CUDA.
   2. build: nvcc builds every kernel of the path from csrc/, one process
      per source, all at once.
+  2a. recapture: decode steps replay CUDA graphs on the card (the port's
+     default; serving/graphs.py). A Qwen2.5-0.5B Generator decodes 128
+     tokens on its graph, a TinyLlama-1.1B Generator (2 layers) grows the
+     megakernels' workspace, and the Qwen Generator decodes again: its
+     graph is captured once more (n_recaptures 1), same tokens, exact
+     launches. Runs first, while the workspaces are Qwen's size.
   2b. tools: the kernel-measurement tools (kuiperllama_tpu_torch/tools): the
      roofline probes (HBM read, decode GEMV weight stream in bf16 and int8,
      bf16 tensor-core matmul) at their default sizes; the three tool kernels
@@ -58,7 +64,13 @@ last line:
      activations and cache, cache length 1024, random weights from a seed),
      Generator.generate_batch_ids on one 32-token prompt, 128 new tokens,
      greedy. Kernel launch counts are zeroed just before and read just after.
-     Llama-2-7B does not fit the megakernel's plan and decodes layered.
+     Llama-2-7B does not fit the megakernel's plan and decodes layered. The
+     decode steps replay the step's CUDA graph (captured in the 8-token
+     warm-up); the same run on the eager route (graphs=False) beside it:
+     equal tokens, exact launches on both, each route's decode profile.
+     Every Generator and engine main path below runs both routes the same
+     way: the row's `eager_*` fields, `first_token_differing` (None) and
+     the graph cache's `graphs` counters with its pool's bytes.
   6b. big route: Llama-2-7B INT8 g 64 (bf16 scales), the same setup under
      KT_FUSED_BIG=1: one big-kernel launch and one lm_head GEMV per decode
      step, counted exactly; the same weights on the layered route beside it
@@ -91,8 +103,10 @@ last line:
      length 1024, 64-step chunks, 128-token pages (the bench.py --engine
      defaults), 16 requests of 32 prompt and 128 new tokens submitted at
      once: Llama-2-7B, then TinyLlama-1.1B with prefill_chunk 256 and a
-     768-token prompt on every 4th request. Tokens/s, TTFT, exact launch
-     counts, peak memory, and a profile of one decode chunk.
+     768-token prompt on every 4th request, each on the graph route and
+     then on the eager one: tokens/s, TTFT, equal tokens, exact launch
+     counts on both, peak memory, and a profile of one decode chunk (both
+     routes for Llama-2-7B).
  11. server: InferenceServer and its HTTP front end on 127.0.0.1 over a
      PagedEngine of the fixture: concurrent requests answer the CPU
      engine's tokens, an invalid one gets a 400 and serving continues; a
@@ -453,6 +467,66 @@ def phase_fixture(dev):
                                  "differ between GPU and CPU")
 
 
+def timed_generate(gen, prompt, dev, new=128):
+    """A warm-up of 8 tokens (it opens the timed run's 256-slot window, so a
+    graph route captures its step there, not in the timed run), then `new`
+    greedy tokens with every launch count zeroed just before and read just
+    after: (ids, prefill_s, decode_s, launches, peak memory bytes)."""
+    import torch
+
+    gen.generate_batch_ids([prompt], max_new_tokens=8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    rows, prefill_s, decode_s = gen.generate_batch_ids([prompt], max_new_tokens=new)
+    launches = read_launches()
+    return rows[0], prefill_s, decode_s, launches, torch.cuda.max_memory_allocated(dev)
+
+
+def graph_stats(cache):
+    """A graph cache's counters and its pool's bytes; None on the eager
+    route."""
+    if cache is None:
+        return None
+    return dict(cache.stats(), pool_bytes=cache.pool_bytes())
+
+
+def first_difference(a, b):
+    """The first index where two token lists differ (a length counts), or
+    None."""
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    return i if i is not None or len(a) == len(b) else min(len(a), len(b))
+
+
+def eager_route(gen, prompt, dev, expect):
+    """The Generator's settings on the eager route (graphs=False), on the
+    same weights, timed as `timed_generate` times the graph route: (ids,
+    row fields)."""
+    from kuiperllama_tpu_torch.serving.generate import Generator
+
+    eager = Generator(gen.cfg, gen.params, cache_len=gen.cache_len,
+                      cache_dtype=gen.cache_dtype, chunk=gen.chunk,
+                      fused_step=gen.fused_step, graphs=False)
+    ids, _, decode_s, launches, _ = timed_generate(eager, prompt, dev)
+    ms = decode_s / (len(ids) - 1) * 1e3
+    return ids, dict(eager_decode_ms_per_token=ms,
+                     eager_decode_tokens_per_s=1e3 / ms,
+                     eager_launches=launches, eager_launches_ok=launches == expect)
+
+
+def graph_route_ok(gen, graphs, decode_steps):
+    """The graph route was taken and captured its step once, in the
+    warm-up: the warm-up's first step eager, every other step a replay."""
+    return (gen.graphs_on() and graphs["n_captures"] == 1
+            and graphs["n_recaptures"] == 0
+            and graphs["n_replays"] == 7 - 1 + decode_steps)
+
+
+def idle_share(prof, ms_per_token):
+    busy = prof["device_busy_ms_per_step"]
+    return 1 - busy / ms_per_token if isinstance(busy, float) else "not measured"
+
+
 def phase_main_path(dev):
     import torch
 
@@ -477,67 +551,80 @@ def phase_main_path(dev):
     gen = Generator(cfg, params, cache_len=1024, cache_dtype=torch.bfloat16,
                     chunk=128)
     prompt = list(range(5, 5 + 32))
-    gen.generate_batch_ids([prompt], max_new_tokens=8)  # warm-up
-    torch.cuda.synchronize()
+    ids, prefill_s, decode_s, launches, peak = timed_generate(gen, prompt, dev)
+    graphs = graph_stats(gen.graph_cache)
 
-    torch.cuda.reset_peak_memory_stats(dev)
-    zero_launches()
-    rows, prefill_s, decode_s = gen.generate_batch_ids([prompt],
-                                                       max_new_tokens=128)
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated(dev)
-
-    steps = len(rows[0]) - 1
+    steps = len(ids) - 1
     ms_per_token = decode_s / steps * 1e3
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
     expect = dict(NO_LAUNCHES, quant_gemv=1 + steps * (4 * cfg.n_layers + 1),
                   quant_gemm=4 * cfg.n_layers)
+    eager_ids, eager = eager_route(gen, prompt, dev, expect)
+    first_diff = first_difference(ids, eager_ids)
 
     cache = decoder.init_kv_cache(cfg, 1, 1024, torch.bfloat16, device=dev)
     logits, _ = decoder.prefill(cfg, params, torch.tensor([prompt], device=dev),
                                 cache, rope=gen.rope)
     finite = bool(torch.isfinite(logits).all())
-    in_vocab = all(0 <= t < cfg.vocab_size for t in rows[0])
-    ok = (len(rows[0]) == 128 and finite and in_vocab
+    in_vocab = all(0 <= t < cfg.vocab_size for t in ids)
+    prof = profile_decode(cfg, params, gen, prompt, dev)
+    prof_eager = profile_decode(cfg, params, gen, prompt, dev, graphs=False)
+    ok = (len(ids) == 128 and finite and in_vocab
           and logits.shape == (1, cfg.vocab_size)
-          and launches == expect and not gen._fused_ok(1))
+          and launches == expect and eager["eager_launches_ok"]
+          and first_diff is None and graph_route_ok(gen, graphs, steps)
+          and not gen._fused_ok(1))
     emit(dict(phase="main_path", model="llama2-7b", group_size=256,
-              dtype="bf16", cache_len=1024, prompt_len=32, new_tokens=len(rows[0]),
-              prefill_ms=prefill_s * 1e3, decode_steps=steps,
-              decode_ms_per_token=ms_per_token,
+              dtype="bf16", cache_len=1024, prompt_len=32, new_tokens=len(ids),
+              route="layered, graphs", prefill_ms=prefill_s * 1e3,
+              decode_steps=steps, decode_ms_per_token=ms_per_token,
               decode_tokens_per_s=steps / decode_s,
               weight_bytes_per_token=weight_bytes,
               weight_bound_ms_per_token=bound_ms,
-              share_of_weight_bound=bound_ms / ms_per_token,
+              share_of_weight_bound=bound_ms / ms_per_token, **eager,
+              first_token_differing=first_diff, graphs=graphs,
+              launches_per_step_profiled=prof["kernels_per_step"],
+              device_busy_ms_per_step=prof["device_busy_ms_per_step"],
+              device_idle_share_unprofiled=idle_share(prof, ms_per_token),
+              eager_launches_per_step_profiled=prof_eager["kernels_per_step"],
+              eager_device_busy_ms_per_step=prof_eager["device_busy_ms_per_step"],
+              eager_device_idle_share_unprofiled=idle_share(
+                  prof_eager, eager["eager_decode_ms_per_token"]),
               peak_memory_bytes=peak, init_s=init_s, launches=launches,
               launches_expected=expect, logits_finite=finite, ok=ok, card=CARD))
     if not ok:
         raise AssertionError("Llama-2-7B main path failed its checks")
-    profile_decode(cfg, params, gen, prompt, dev)
     return launches
 
 
 def profile_decode(cfg, params, gen, prompt, dev, steps=16, fused=False,
-                   model="llama2-7b"):
+                   model="llama2-7b", graphs=None):
     """Where a decode step's time goes: `steps` greedy steps of the main
-    path under torch.profiler, summed by kernel name. Emits the card's busy
-    time per step against the step's wall time (the idle share is host
-    time the card waits through) and the kernels that take the most."""
+    path under torch.profiler, summed by kernel name, on the Generator's
+    route (graphs None) or the one asked for. Emits the card's busy time
+    per step against the step's wall time (the idle share is host time the
+    card waits through) and the kernels that take the most. On the graph
+    route a first chunk captures the step and the profiled one replays it."""
     import torch
 
     from kuiperllama_tpu_torch.models import decoder
+    from kuiperllama_tpu_torch.ops.sampling import DecodeState
     from kuiperllama_tpu_torch.serving.generate import _stop_array, decode_chunk
+    from kuiperllama_tpu_torch.serving.graphs import GraphCache
 
+    graphs = gen.graphs_on() if graphs is None else graphs
     cache = decoder.init_kv_cache(cfg, 1, gen.cache_len, gen.cache_dtype,
                                   device=dev)
     toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
     logits, cache = decoder.prefill(cfg, params, toks, cache, rope=gen.rope)
-    state = (logits.argmax(-1).to(torch.int32),
-             torch.tensor([len(prompt)], dtype=torch.int32, device=dev),
-             cache, torch.zeros(1, dtype=torch.bool, device=dev))
-    run = lambda: decode_chunk(cfg, params, *state, None, _stop_array((), dev),
-                               steps, active_len=256, rope=gen.rope,
-                               fused=fused, drop_past_end=False)
+    state = DecodeState(logits.argmax(-1).to(torch.int32),
+                        torch.tensor([len(prompt)], dtype=torch.int32, device=dev),
+                        torch.zeros(1, dtype=torch.bool, device=dev),
+                        _stop_array((), dev), steps)
+    step_graphs = GraphCache(dev) if graphs else None
+    run = lambda: decode_chunk(cfg, params, state, cache, None, steps,
+                               active_len=256, rope=gen.rope, fused=fused,
+                               drop_past_end=False, graphs=step_graphs)
     run()
     torch.cuda.synchronize()
     zero_launches()
@@ -563,8 +650,10 @@ def profile_decode(cfg, params, gen, prompt, dev, steps=16, fused=False,
         by_name["fused_chunk_kernel (CUDA events)"] = (
             sum(a.elapsed_time(b) for a, b in spans), len(spans))
     busy_ms = sum(ms for ms, _ in by_name.values())
-    row = dict(phase="decode_profile", model=model,
-               route="fused" if fused else "layered", steps=steps,
+    route = ("chunk kernel" if spans else "fused" if fused else "layered") + (
+        ", graphs" if graphs and not spans else ", eager")
+    row = dict(phase="decode_profile", model=model, route=route,
+               steps=steps, graph_replays=step_graphs.n_replays if graphs else None,
                megakernel_launches_counted_vs_profiled={
                    k: [counted[k], recorded[k]] for k in recorded},
                wall_ms_per_step_profiled=wall_ms / steps,
@@ -872,43 +961,38 @@ def phase_fused_main_path(dev, label, preset, quantize):
     gen = Generator(cfg, params, cache_len=CACHE_LEN, cache_dtype=torch.bfloat16,
                     chunk=128)
     prompt = list(range(5, 5 + 32))
-    gen.generate_batch_ids([prompt], max_new_tokens=8)  # warm-up
-    torch.cuda.synchronize()
+    ids, prefill_s, decode_s, launches, peak = timed_generate(gen, prompt, dev)
+    graphs = graph_stats(gen.graph_cache)
 
-    torch.cuda.reset_peak_memory_stats(dev)
-    zero_launches()
-    rows, prefill_s, decode_s = gen.generate_batch_ids([prompt], max_new_tokens=128)
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated(dev)
-
-    steps = len(rows[0]) - 1
+    steps = len(ids) - 1
     ms_per_token = decode_s / steps * 1e3
     expect = dict(NO_LAUNCHES, fused_decode=steps,
                   quant_gemv=1 + steps if quantize else 0,
                   quant_gemm=4 * cfg.n_layers if quantize else 0)
+    eager_ids, eager = eager_route(gen, prompt, dev, expect)
+    first_diff = first_difference(ids, eager_ids)
     layered = Generator(cfg, params, cache_len=CACHE_LEN, cache_dtype=torch.bfloat16,
                         chunk=128, fused_step=False)
     rows_layered, _, layered_decode_s = layered.generate_batch_ids([prompt], 128)
-    first_diff = next((i for i, (a, c) in enumerate(zip(rows[0], rows_layered[0]))
-                       if a != c), None)
-    in_vocab = all(0 <= t < cfg.vocab_size for t in rows[0])
-    ok = (len(rows[0]) == 128 and in_vocab and gen._fused_ok(1)
-          and launches == expect)
+    first_diff_layered = first_difference(ids, rows_layered[0])
+    in_vocab = all(0 <= t < cfg.vocab_size for t in ids)
+    ok = (len(ids) == 128 and in_vocab and gen._fused_ok(1)
+          and launches == expect and eager["eager_launches_ok"]
+          and first_diff is None and graph_route_ok(gen, graphs, steps))
     prof = profile_decode(cfg, params, gen, prompt, dev, fused=True, model=label)
-    busy = prof["device_busy_ms_per_step"]
     main_row = dict(phase="main_path", model=label, quant="int8" if quantize else "bf16",
                     group_size=256 if quantize else None, dtype="bf16", cache_len=CACHE_LEN,
-                    prompt_len=32, new_tokens=len(rows[0]), route="fused (auto)",
+                    prompt_len=32, new_tokens=len(ids), route="fused (auto), graphs",
                     prefill_ms=prefill_s * 1e3, decode_steps=steps,
                     decode_ms_per_token=ms_per_token, decode_tokens_per_s=steps / decode_s,
                     weight_bytes_per_token=weight_bytes, floor_ms_per_token=floor_ms,
-                    share_of_floor=floor_ms / ms_per_token,
-                    layered_decode_ms_per_token=layered_decode_s / (len(rows_layered[0]) - 1) * 1e3,
-                    first_token_differing_from_layered=first_diff,
+                    share_of_floor=floor_ms / ms_per_token, **eager,
+                    first_token_differing=first_diff, graphs=graphs,
+                    layered_graphs_decode_ms_per_token=layered_decode_s / (len(rows_layered[0]) - 1) * 1e3,
+                    first_token_differing_from_layered=first_diff_layered,
                     launches_per_step_profiled=prof["kernels_per_step"],
-                    device_busy_ms_per_step=busy,
-                    device_idle_share_unprofiled=(1 - busy / ms_per_token
-                                                  if isinstance(busy, float) else "not measured"),
+                    device_busy_ms_per_step=prof["device_busy_ms_per_step"],
+                    device_idle_share_unprofiled=idle_share(prof, ms_per_token),
                     peak_memory_bytes=peak, init_s=init_s, launches=launches,
                     launches_expected=expect, ok=ok, card=CARD)
     emit(main_row)
@@ -1143,7 +1227,9 @@ def profile_engine_chunk(eng, model, requests):
     by_name, wall_ms = device_profile(eng.step)
     eng.run([])
     busy_ms = sum(ms for ms, _ in by_name.values())
-    row = dict(phase="engine_profile", model=model, slots=eng.max_batch,
+    row = dict(phase="engine_profile", model=model,
+               route="graphs" if eng.graph_cache is not None else "eager",
+               slots=eng.max_batch,
                steps=PROFILE_STEPS, decode_ms_per_step_unprofiled=step_ms,
                wall_ms_per_step_profiled=wall_ms / PROFILE_STEPS,
                device_busy_ms_per_step=(busy_ms / PROFILE_STEPS if by_name
@@ -1162,76 +1248,166 @@ def profile_engine_chunk(eng, model, requests):
     return row
 
 
-def phase_engine_main_path(dev, label, preset, prefill_chunk=0, long_prompt=0):
+def phase_engine_main_path(dev, label, preset, prefill_chunk=0, long_prompt=0,
+                           profile_eager=False):
     """PagedEngine at full width and depth (INT8 g 256, bf16 scales,
     activations and pools, random weights from a seed): ENGINE_REQUESTS
     requests of ENGINE_PROMPT tokens (every 4th of `long_prompt` tokens when
-    it is set) and ENGINE_NEW new tokens, all submitted at t0. Exact launch
-    counts: paged_attention n_layers per decode step; the GEMM 4 n_layers + 1
-    per decode step (M = 8) and one lm_head per prefill forward (>= 256 rows
-    take the dequantize-then-matmul route)."""
+    it is set) and ENGINE_NEW new tokens, all submitted at t0, on the graph
+    route (the card's default), then on the eager route (graphs=False) on
+    the same weights: the same tokens. Exact launch counts on both:
+    paged_attention n_layers per decode step; the GEMM 4 n_layers + 1 per
+    decode step (M = 8) and one lm_head per prefill forward (>= 256 rows
+    take the dequantize-then-matmul route). A profile of one decode chunk on
+    the graph route (and on the eager one with `profile_eager`)."""
     import torch
 
     from kuiperllama_tpu_torch.serving.engine import PagedEngine, Request
 
     cfg, params = fused_model(dev, preset, True, 256)
-    eng = PagedEngine(cfg, params, max_batch=ENGINE_SLOTS, max_len=CACHE_LEN,
-                      chunk=ENGINE_CHUNK, page_size=ENGINE_PS,
-                      cache_dtype=torch.bfloat16, prefill_chunk=prefill_chunk)
-    pool_bytes = eng.k_pages.nbytes + eng.v_pages.nbytes
-    vocab = cfg.vocab_size
+    vocab, L = cfg.vocab_size, cfg.n_layers
 
     def prompt(i, n):
         return [(7 * i + j) % (vocab - 1) + 1 for j in range(n)]
 
-    eng.run([Request(prompt_ids=prompt(i, 16), max_new_tokens=4) for i in range(2)])
-    torch.cuda.synchronize()
-    reqs = [Request(prompt_ids=prompt(i, long_prompt if long_prompt and i % 4 == 3
-                                      else ENGINE_PROMPT),
-                    max_new_tokens=ENGINE_NEW) for i in range(ENGINE_REQUESTS)]
-    eng.n_decode_steps = eng.n_prefill_calls = 0
-    eng.prefill_wall_s = 0.0
-    zero_launches()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    done = eng.run([])
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated(dev)
-    steps, prefills = eng.n_decode_steps, eng.n_prefill_calls
-    L = cfg.n_layers
-    expect = dict(NO_LAUNCHES, paged_attention=L * steps,
-                  quant_gemm=steps * (4 * L + 1) + prefills)
+    def profile_requests():
+        return [Request(prompt_ids=prompt(100 + i, ENGINE_PROMPT),
+                        max_new_tokens=3 * PROFILE_STEPS + 8)
+                for i in range(ENGINE_SLOTS)]
+
+    def run(graphs):
+        eng = PagedEngine(cfg, params, max_batch=ENGINE_SLOTS, max_len=CACHE_LEN,
+                          chunk=ENGINE_CHUNK, page_size=ENGINE_PS,
+                          cache_dtype=torch.bfloat16, prefill_chunk=prefill_chunk,
+                          graphs=graphs)
+        eng.run([Request(prompt_ids=prompt(i, 16), max_new_tokens=4) for i in range(2)])
+        torch.cuda.synchronize()
+        reqs = [Request(prompt_ids=prompt(i, long_prompt if long_prompt and i % 4 == 3
+                                          else ENGINE_PROMPT),
+                        max_new_tokens=ENGINE_NEW) for i in range(ENGINE_REQUESTS)]
+        eng.n_decode_steps = eng.n_prefill_calls = 0
+        eng.prefill_wall_s = 0.0
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run([])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        steps, prefills = eng.n_decode_steps, eng.n_prefill_calls
+        expect = dict(NO_LAUNCHES, paged_attention=L * steps,
+                      quant_gemm=steps * (4 * L + 1) + prefills)
+        generated = sum(len(r.out_ids) for r in reqs)
+        out = dict(eng=eng, reqs=reqs, wall_s=wall_s, launches=launches,
+                   expect=expect, peak=torch.cuda.max_memory_allocated(dev),
+                   steps=steps, prefills=prefills, preemptions=eng.n_preemptions,
+                   prefill_wall_s=eng.prefill_wall_s,
+                   graphs=graph_stats(eng.graph_cache),
+                   ok=(len(done) == ENGINE_REQUESTS and launches == expect
+                       and generated == ENGINE_REQUESTS * ENGINE_NEW))
+        return out
+
+    g = run(None)
+    eng, reqs = g["eng"], g["reqs"]
+    pool_bytes = eng.k_pages.nbytes + eng.v_pages.nbytes
+    prof = profile_engine_chunk(eng, label, profile_requests())
+    del eng, g["eng"]
+    e = run(False)
+    prof_eager = (profile_engine_chunk(e["eng"], label, profile_requests())
+                  if profile_eager else None)
+    del e["eng"]
+    diff = next(((i, first_difference(a.out_ids, b.out_ids))
+                 for i, (a, b) in enumerate(zip(reqs, e["reqs"]))
+                 if a.out_ids != b.out_ids), None)
     generated = sum(len(r.out_ids) for r in reqs)
+    steps = g["steps"]
     ttft = sorted(r.ttft_s for r in reqs)
     pct = lambda v, p: v[min(len(v) - 1, int(len(v) * p / 100))]
     in_vocab = all(0 <= t < vocab for r in reqs for t in r.out_ids)
-    ok = (len(done) == ENGINE_REQUESTS and generated == ENGINE_REQUESTS * ENGINE_NEW
-          and in_vocab and launches == expect)
+    # the key opened in the warm-up: (B, max_pages) is fixed, so one
+    # capture serves every chunk length and admission
+    ok = (g["ok"] and e["ok"] and in_vocab and diff is None
+          and g["graphs"] is not None and g["graphs"]["n_captures"] == 1
+          and g["graphs"]["n_recaptures"] == 0)
     row = dict(phase="engine_main_path", model=label, quant="int8", group_size=256,
                dtype="bf16", slots=ENGINE_SLOTS, max_len=CACHE_LEN, chunk=ENGINE_CHUNK,
                page_size=ENGINE_PS, prefill_chunk=prefill_chunk,
                requests=ENGINE_REQUESTS, prompt_len=ENGINE_PROMPT,
                long_prompt_every_4th=long_prompt or None, new_tokens=ENGINE_NEW,
-               generated_tokens=generated, wall_s=wall_s, tokens_per_s=generated / wall_s,
+               route="graphs", generated_tokens=generated, wall_s=g["wall_s"],
+               tokens_per_s=generated / g["wall_s"],
+               eager_wall_s=e["wall_s"], eager_tokens_per_s=generated / e["wall_s"],
+               first_token_differing=diff, graphs=g["graphs"],
                ttft_s_min=ttft[0], ttft_s_p50=pct(ttft, 50), ttft_s_p99=pct(ttft, 99),
-               decode_steps=steps, prefill_calls=prefills,
-               single_shot_prefill_s=eng.prefill_wall_s,
-               wall_ms_per_decode_step=(wall_s - eng.prefill_wall_s) / steps * 1e3,
-               preemptions=eng.n_preemptions, peak_memory_bytes=peak,
-               pool_bytes=pool_bytes, launches=launches, launches_expected=expect,
-               ok=ok, card=CARD)
+               decode_steps=steps, prefill_calls=g["prefills"],
+               single_shot_prefill_s=g["prefill_wall_s"],
+               wall_ms_per_decode_step=(g["wall_s"] - g["prefill_wall_s"]) / steps * 1e3,
+               eager_wall_ms_per_decode_step=(e["wall_s"] - e["prefill_wall_s"]) / e["steps"] * 1e3,
+               profile=dict(decode_ms_per_step=prof["decode_ms_per_step_unprofiled"],
+                            launches_per_step=prof["launches_per_step"],
+                            device_busy_ms_per_step=prof["device_busy_ms_per_step"],
+                            device_idle_share=prof["device_idle_share_unprofiled"]),
+               eager_profile=None if prof_eager is None else dict(
+                   decode_ms_per_step=prof_eager["decode_ms_per_step_unprofiled"],
+                   launches_per_step=prof_eager["launches_per_step"],
+                   device_busy_ms_per_step=prof_eager["device_busy_ms_per_step"],
+                   device_idle_share=prof_eager["device_idle_share_unprofiled"]),
+               preemptions=g["preemptions"],
+               peak_memory_bytes=g["peak"], pool_bytes=pool_bytes,
+               launches=g["launches"], launches_expected=g["expect"],
+               eager_launches=e["launches"], ok=ok, card=CARD)
     emit(row)
     if not ok:
         raise AssertionError(f"{label} engine main path failed its checks")
-    prof = profile_engine_chunk(eng, label, [
-        Request(prompt_ids=prompt(100 + i, ENGINE_PROMPT), max_new_tokens=3 * PROFILE_STEPS + 8)
-        for i in range(ENGINE_SLOTS)])
-    del eng, params
-    return launches, row, prof
+    del params
+    return g["launches"], row, prof
+
+
+def phase_recapture(dev):
+    """Graphs whose workspace pointers went stale are captured again: a
+    Qwen2.5-0.5B Generator (bf16, full width and depth, per-step megakernel
+    on the graph route) decodes 128 tokens, a TinyLlama-1.1B Generator (2
+    layers) decodes and grows the megakernels' workspace (its dim 2048 over
+    Qwen's 896), and the Qwen Generator decodes again: its graph is dropped
+    and captured once more (n_recaptures 1), its tokens unchanged and its
+    launches exact. Run first, while the workspaces are Qwen's size."""
+    import torch
+
+    from kuiperllama_tpu_torch.ops.kernels import workspace
+    from kuiperllama_tpu_torch.serving.generate import Generator
+
+    prompt = list(range(5, 5 + 32))
+    cfg, params = fused_model(dev, "qwen2.5-0.5b", False, 0)
+    qwen = Generator(cfg, params, cache_len=CACHE_LEN, cache_dtype=torch.bfloat16,
+                     chunk=128)
+    first = qwen.generate_ids(prompt, max_new_tokens=128)[0]
+    before = dict(qwen.graph_cache.stats())
+    epoch = workspace.epoch
+    tcfg, tparams = fused_model(dev, "tinyllama-1.1b", True, 256, layers=2)
+    tiny = Generator(tcfg, tparams, cache_len=CACHE_LEN, cache_dtype=torch.bfloat16,
+                     chunk=128)
+    tiny.generate_ids(prompt, max_new_tokens=16)
+    grown = workspace.epoch - epoch
+    del tiny, tparams
+    zero_launches()
+    again = qwen.generate_ids(prompt, max_new_tokens=128)[0]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    after = qwen.graph_cache.stats()
+    ok = (qwen.graphs_on() and qwen._fused_ok(1) and grown > 0
+          and before["n_captures"] == 1 and before["n_recaptures"] == 0
+          and after["n_captures"] == 2 and after["n_recaptures"] == 1
+          and again == first and len(first) == 128
+          and launches == dict(NO_LAUNCHES, fused_decode=127))
+    emit(dict(phase="recapture", model="qwen2.5-0.5b", grown_by="tinyllama-1.1b (2 layers)",
+              workspace_epoch_moves=grown, graphs_before=before, graphs_after=after,
+              first_token_differing=first_difference(first, again),
+              launches=launches, ok=ok, card=CARD))
+    if not ok:
+        raise AssertionError("the graphs were not captured again after the "
+                             "workspace grew, or their tokens changed")
 
 
 def phase_server(dev, cfg, params, want):
@@ -1807,44 +1983,41 @@ def phase_big_main_path(dev):
     weight_bytes = sum(param_bytes({"w": w}) for w in stream)
     floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
     prompt = list(range(5, 5 + 32))
+    expect = dict(NO_LAUNCHES, quant_gemv=1 + 127, quant_gemm=4 * cfg.n_layers,
+                  fused_decode_big=127)
     with knob("KT_FUSED_BIG"):
         gen = Generator(cfg, params, cache_len=CACHE_LEN, cache_dtype=torch.bfloat16,
                         chunk=128)
-        gen.generate_batch_ids([prompt], max_new_tokens=8)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        zero_launches()
-        rows, prefill_s, decode_s = gen.generate_batch_ids([prompt], max_new_tokens=128)
-        launches = read_launches()
-        peak = torch.cuda.max_memory_allocated(dev)
+        ids, prefill_s, decode_s, launches, peak = timed_generate(gen, prompt, dev)
+        graphs = graph_stats(gen.graph_cache)
         fused_ok = gen._fused_ok(1)
+        eager_ids, eager = eager_route(gen, prompt, dev, expect)
         prof = profile_decode(cfg, params, gen, prompt, dev, fused=True,
                               model="llama2-7b g64 big")
-    steps = len(rows[0]) - 1
+    steps = len(ids) - 1
     ms_per_token = decode_s / steps * 1e3
-    expect = dict(NO_LAUNCHES, quant_gemv=1 + steps, quant_gemm=4 * cfg.n_layers,
-                  fused_decode_big=steps)
+    first_diff = first_difference(ids, eager_ids)
     layered = Generator(cfg, params, cache_len=CACHE_LEN, cache_dtype=torch.bfloat16,
                         chunk=128, fused_step=False)
     rows_l, _, layered_s = layered.generate_batch_ids([prompt], 128)
-    first_diff = next((i for i, (a, c) in enumerate(zip(rows[0], rows_l[0]))
-                       if a != c), None)
-    in_vocab = all(0 <= t < cfg.vocab_size for t in rows[0])
-    ok = (len(rows[0]) == 128 and in_vocab and fused_ok and launches == expect)
-    busy = prof["device_busy_ms_per_step"]
+    first_diff_layered = first_difference(ids, rows_l[0])
+    in_vocab = all(0 <= t < cfg.vocab_size for t in ids)
+    ok = (len(ids) == 128 and in_vocab and fused_ok and launches == expect
+          and eager["eager_launches_ok"] and first_diff is None
+          and graph_route_ok(gen, graphs, steps))
     emit(dict(phase="main_path", model="llama2-7b", quant="int8", group_size=64,
-              dtype="bf16", cache_len=CACHE_LEN, prompt_len=32, new_tokens=len(rows[0]),
-              route="big (KT_FUSED_BIG=1)", prefill_ms=prefill_s * 1e3,
+              dtype="bf16", cache_len=CACHE_LEN, prompt_len=32, new_tokens=len(ids),
+              route="big (KT_FUSED_BIG=1), graphs", prefill_ms=prefill_s * 1e3,
               decode_steps=steps, decode_ms_per_token=ms_per_token,
               decode_tokens_per_s=steps / decode_s, weight_bytes_per_token=weight_bytes,
               floor_ms_per_token=floor_ms, share_of_floor=floor_ms / ms_per_token,
-              layered_decode_ms_per_token=layered_s / (len(rows_l[0]) - 1) * 1e3,
-              layered_share_of_floor=floor_ms / (layered_s / (len(rows_l[0]) - 1) * 1e3),
-              first_token_differing_from_layered=first_diff,
+              **eager, first_token_differing=first_diff, graphs=graphs,
+              layered_graphs_decode_ms_per_token=layered_s / (len(rows_l[0]) - 1) * 1e3,
+              layered_graphs_share_of_floor=floor_ms / (layered_s / (len(rows_l[0]) - 1) * 1e3),
+              first_token_differing_from_layered=first_diff_layered,
               launches_per_step_profiled=prof["kernels_per_step"],
-              device_busy_ms_per_step=busy,
-              device_idle_share_unprofiled=(1 - busy / ms_per_token
-                                            if isinstance(busy, float) else "not measured"),
+              device_busy_ms_per_step=prof["device_busy_ms_per_step"],
+              device_idle_share_unprofiled=idle_share(prof, ms_per_token),
               peak_memory_bytes=peak, init_s=init_s, launches=launches,
               launches_expected=expect, ok=ok, card=CARD))
     if not ok:
@@ -2435,6 +2608,7 @@ def main() -> int:
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               per_source_s=built, flags=" ".join(build.NVCC_FLAGS)))
 
+    phase_recapture(dev)
     tool_rows, tool_launches = phase_tools(dev)
     gemv, gemm = phase_kernels(dev)
     fused_rows = phase_fused_kernel(dev)
@@ -2454,7 +2628,7 @@ def main() -> int:
     launches["qwen2.5-0.5b chunk"], qwen_chunk_step = phase_chunk_main_path(
         dev, "qwen2.5-0.5b", "qwen2.5-0.5b", False, qw_row)
     launches["engine llama2-7b"], _, _ = phase_engine_main_path(
-        dev, "llama2-7b", "llama2-7b")
+        dev, "llama2-7b", "llama2-7b", profile_eager=True)
     launches["engine tinyllama-1.1b"], _, _ = phase_engine_main_path(
         dev, "tinyllama-1.1b", "tinyllama-1.1b", prefill_chunk=256, long_prompt=768)
     phase_server(dev, fixture_cfg, fixture_params, fixture_tokens)

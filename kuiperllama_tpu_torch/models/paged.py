@@ -6,9 +6,12 @@ kuiperllama_tpu/models/paged.py (single device).
   * prefill_chunk_paged: one C-token chunk of a chunked prefill, attending
     to the row's earlier context gathered from its pages and, causally, to
     the chunk itself;
-  * decode_chunk_paged(_packed): `steps` decode steps of the whole batch,
-    each appending the new token's K/V to its page and running the paged
-    flash-decode kernel (ops/kernels/paged_attention.py) once per layer.
+  * decode_step_paged: one decode step of the whole batch, in place on a
+    DecodeState, appending the new token's K/V to its page and running the
+    paged flash-decode kernel (ops/kernels/paged_attention.py) once per
+    layer; run_chunk_paged runs `steps` of them, eagerly or as replays of
+    a CUDA graph of the step (serving/graphs.py), and
+    decode_chunk_paged(_packed) is the JAX package's functional form.
 
 The pools k_pages, v_pages [L, P, ps, KH*hd] are updated IN PLACE and
 returned (the JAX package donates them to each call instead). Out-of-range
@@ -30,7 +33,8 @@ from ..ops.kernels.paged_attention import paged_attention_flat
 from ..ops.linear import linear
 from ..ops.rmsnorm import rmsnorm
 from ..ops.rope import gather_rope
-from ..ops.sampling import sample_token
+from ..ops.sampling import DecodeState
+from ..serving.graphs import run_steps
 from .decoder import _mlp_residual, _qkv, build_rope
 
 
@@ -166,6 +170,70 @@ def prefill_chunk_paged(cfg: ModelConfig, params, tokens_chunk, chunk_start,
     return logits, ends_here, k_pages, v_pages
 
 
+def decode_step_paged(cfg: ModelConfig, params, state: DecodeState, k_pages,
+                      v_pages, meta, generator=None, page_size: int = 128,
+                      temperature: float = 0.0, top_k: int = 0,
+                      top_p: float = 1.0, *, rope=None, mode: str = "fast"):
+    """One decode step of the whole batch over the paged cache, IN PLACE:
+    each row's new K/V rows land in its page, the paged flash-decode kernel
+    runs once per layer, and `state` (token, pos, done, the chunk's token
+    block) advances. meta = (page_table [B, max_pages], flat_b, flat_page,
+    flat_tok0, n_items): int32 device tensors, read, never written."""
+    page_table_dev, flat_b, flat_page, flat_tok0, n_items = meta
+    token, pos = state.token, state.pos
+    B = token.shape[0]
+    hd = cfg.head_dim
+    dev = token.device
+    sin, cos = rope if rope is not None else build_rope(cfg, dev)
+    b_idx = torch.arange(B, device=dev)
+    blocks = params["blocks"]
+    pt = page_table_dev.long()
+    max_pages = pt.shape[1]
+    x = params["tok_emb"][token.long()][:, None]  # [B, 1, dim]
+    s, c = gather_rope(sin, cos, pos[:, None])
+    seq_lens = (pos + 1).to(torch.int32)
+    pos_l = pos.long()
+    write_page = sink_pages(pt[b_idx, (pos_l // page_size).clamp(max=max_pages - 1)],
+                            k_pages.shape[1])
+    write_off = pos_l % page_size
+    for li in range(cfg.n_layers):
+        q, k, v, H, KH = _qkv(cfg, blocks, li, x, s, c, B, 1, mode)
+        # retired slots' page-table rows are 0, the garbage page: several
+        # such rows write it in an undefined order, which is harmless
+        k_pages[li, write_page, write_off] = k.reshape(B, KH * hd).to(k_pages.dtype)
+        v_pages[li, write_page, write_off] = v.reshape(B, KH * hd).to(v_pages.dtype)
+        acc, m, l = paged_attention_flat(
+            q[:, 0].contiguous(), k_pages, v_pages, flat_b, flat_page,
+            flat_tok0, n_items, seq_lens, page_size=page_size, layer_idx=li)
+        attn = (acc / torch.clamp(l[..., None], min=1e-30)).to(x.dtype)
+        x = _mlp_residual(cfg, blocks, li, x, attn[:, None], B, 1, H, hd, mode)
+    logits = _final_logits(cfg, params, x[:, 0], mode)
+    state.emit(logits, generator, temperature, top_k, top_p)
+
+
+@torch.no_grad()
+def run_chunk_paged(cfg: ModelConfig, params, state: DecodeState, k_pages,
+                    v_pages, generator, meta, steps: int, page_size: int = 128,
+                    temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+                    *, rope=None, mode: str = "fast", graphs=None):
+    """`steps` calls of `decode_step_paged` on `state`, eagerly or through
+    `graphs` (serving/graphs.py), keyed as the JAX package keys its jitted
+    chunk: (B, max_pages, sampling, mode), with the pools' dtype and the
+    page size. Returns the chunk's tokens [B, steps] (a view of
+    state.toks)."""
+    B, max_pages = meta[0].shape
+
+    def step():
+        decode_step_paged(cfg, params, state, k_pages, v_pages, meta, generator,
+                          page_size, temperature, top_k, top_p, rope=rope,
+                          mode=mode)
+
+    key = ("paged", B, max_pages, k_pages.dtype, page_size, temperature, top_k,
+           top_p, mode)
+    return run_steps(state, step, steps, graphs, key,
+                     (k_pages, v_pages, *meta, *(rope or ())), rng=temperature > 0)
+
+
 @torch.no_grad()
 def decode_chunk_paged(cfg: ModelConfig, params, token, pos, k_pages, v_pages,
                        done, generator, stop_ids, page_table_dev, flat_b,
@@ -175,52 +243,22 @@ def decode_chunk_paged(cfg: ModelConfig, params, token, pos, k_pages, v_pages,
                        mode: str = "fast"):
     """Run `steps` decode iterations over the paged cache.
 
-    token/pos/done: [B] current state on the device. page_table_dev
-    [B, max_pages] int locates the write page of each new token; a row that
-    decodes up to max_len inside a chunk reaches pos // ps == max_pages,
-    whose index is clamped to the last page as JAX clamps the gather. The
-    work list must cover each row's pages up to pos + steps (the scheduler
-    pre-extends them); unwritten slots are masked by seq_lens = pos + 1.
-    Finished rows (done) keep their token and position. `generator` is the
-    torch.Generator of the sampling draws.
+    token/pos/done: [B] current state on the device (not written: the steps
+    run on copies). page_table_dev [B, max_pages] int locates the write page
+    of each new token; a row that decodes up to max_len inside a chunk
+    reaches pos // ps == max_pages, whose index is clamped to the last page
+    as JAX clamps the gather. The work list must cover each row's pages up
+    to pos + steps (the scheduler pre-extends them); unwritten slots are
+    masked by seq_lens = pos + 1. Finished rows (done) keep their token and
+    position. `generator` is the torch.Generator of the sampling draws.
 
     Returns (tokens int32 [B, steps], token, pos, k_pages, v_pages, done)."""
-    B = token.shape[0]
-    hd = cfg.head_dim
-    dev = token.device
-    sin, cos = rope if rope is not None else build_rope(cfg, dev)
-    b_idx = torch.arange(B, device=dev)
-    blocks = params["blocks"]
-    pt = page_table_dev.long()
-    max_pages = pt.shape[1]
-    toks = torch.empty((B, steps), dtype=torch.int32, device=dev)
-    for i in range(steps):
-        x = params["tok_emb"][token.long()][:, None]  # [B, 1, dim]
-        s, c = gather_rope(sin, cos, pos[:, None])
-        seq_lens = (pos + 1).to(torch.int32)
-        pos_l = pos.long()
-        write_page = sink_pages(pt[b_idx, (pos_l // page_size).clamp(max=max_pages - 1)],
-                                k_pages.shape[1])
-        write_off = pos_l % page_size
-        for li in range(cfg.n_layers):
-            q, k, v, H, KH = _qkv(cfg, blocks, li, x, s, c, B, 1, mode)
-            # retired slots' page-table rows are 0, the garbage page: several
-            # such rows write it in an undefined order, which is harmless
-            k_pages[li, write_page, write_off] = k.reshape(B, KH * hd).to(k_pages.dtype)
-            v_pages[li, write_page, write_off] = v.reshape(B, KH * hd).to(v_pages.dtype)
-            acc, m, l = paged_attention_flat(
-                q[:, 0].contiguous(), k_pages, v_pages, flat_b, flat_page,
-                flat_tok0, n_items, seq_lens, page_size=page_size, layer_idx=li)
-            attn = (acc / torch.clamp(l[..., None], min=1e-30)).to(x.dtype)
-            x = _mlp_residual(cfg, blocks, li, x, attn[:, None], B, 1, H, hd, mode)
-        logits = _final_logits(cfg, params, x[:, 0], mode)
-        nxt = sample_token(logits, generator, temperature, top_k, top_p)
-        nxt = torch.where(done, token, nxt)
-        new_done = done | (nxt[:, None] == stop_ids[None, :]).any(dim=-1)
-        pos = torch.where(done, pos, pos + 1)
-        done, token = new_done, nxt
-        toks[:, i] = nxt
-    return toks, token, pos, k_pages, v_pages, done
+    state = DecodeState(token.clone(), pos.clone(), done.clone(), stop_ids, steps)
+    toks = run_chunk_paged(
+        cfg, params, state, k_pages, v_pages, generator,
+        (page_table_dev, flat_b, flat_page, flat_tok0, n_items), steps,
+        page_size, temperature, top_k, top_p, rope=rope, mode=mode)
+    return toks, state.token, state.pos, k_pages, v_pages, state.done
 
 
 def pack_chunk_meta(pt, fb, fp, ft, ni) -> np.ndarray:
@@ -232,6 +270,15 @@ def pack_chunk_meta(pt, fb, fp, ft, ni) -> np.ndarray:
         np.asarray([int(np.asarray(ni).reshape(-1)[0])], np.int32)])
 
 
+def unpack_chunk_meta(packed, shapes):
+    """The (page_table [B, max_pages], flat_b, flat_page, flat_tok0,
+    n_items) views of a packed vector; shapes = (B, max_pages, M)."""
+    B, MP, M = shapes
+    o = B * MP
+    return (packed[:o].view(B, MP), packed[o: o + M], packed[o + M: o + 2 * M],
+            packed[o + 2 * M: o + 3 * M], packed[o + 3 * M: o + 3 * M + 1])
+
+
 def decode_chunk_paged_packed(cfg: ModelConfig, params, token, pos, k_pages,
                               v_pages, done, generator, stop_ids, packed,
                               shapes, steps: int, page_size: int = 128,
@@ -240,12 +287,8 @@ def decode_chunk_paged_packed(cfg: ModelConfig, params, token, pos, k_pages,
                               mode: str = "fast"):
     """decode_chunk_paged with the scheduler metadata as ONE packed int32
     device vector (pack_chunk_meta); shapes = (B, max_pages, M). The pieces
-    are views of it."""
-    B, MP, M = shapes
-    o = B * MP
+    are views of it (`unpack_chunk_meta`)."""
     return decode_chunk_paged(
         cfg, params, token, pos, k_pages, v_pages, done, generator, stop_ids,
-        packed[:o].view(B, MP), packed[o: o + M], packed[o + M: o + 2 * M],
-        packed[o + 2 * M: o + 3 * M], packed[o + 3 * M: o + 3 * M + 1],
-        steps=steps, page_size=page_size, temperature=temperature,
-        top_k=top_k, top_p=top_p, rope=rope, mode=mode)
+        *unpack_chunk_meta(packed, shapes), steps=steps, page_size=page_size,
+        temperature=temperature, top_k=top_k, top_p=top_p, rope=rope, mode=mode)

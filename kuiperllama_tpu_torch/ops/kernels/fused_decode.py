@@ -50,7 +50,7 @@ import torch
 from ...quant import QuantTensor
 from ..rope import apply_rope
 from ..tuning import gemv_int8_auto
-from . import build
+from . import build, workspace
 from .quant_matmul import _sms
 
 SOURCE = "fused_decode"
@@ -411,7 +411,6 @@ class _Args(ctypes.Structure):
 W_INT8, W_BF16, W_FP32 = 0, 1, 2
 _COLS_PER_THREAD = {W_INT8: 16, W_BF16: 8, W_FP32: 4}
 _occupancy: dict = {}
-_workspace: dict = {}
 
 
 def kernel_fns(source: str, launch_name: str, args_type=_Args):
@@ -532,15 +531,9 @@ def _weight_kind(blocks, device, who="fused_decode_step"):
 
 def _ws(device, name, numel, dtype, zero=False):
     """A scratch tensor of at least `numel` elements, kept per device and
-    reused by every launch. The split counters start at zero and the kernel
-    leaves them at zero."""
-    key = (device.index, name)
-    t = _workspace.get(key)
-    if t is None or t.numel() < numel or t.dtype != dtype:
-        t = (torch.zeros if zero else torch.empty)(max(numel, 1), dtype=dtype,
-                                                   device=device)
-        _workspace[key] = t
-    return t
+    reused by every launch (ops/kernels/workspace.py). The split counters
+    start at zero and the kernel leaves them at zero."""
+    return workspace.scratch(device, f"fused_{name}", numel, dtype, zero)
 
 
 PHASES = ("qkv", "attention", "wo", "gate_up", "w2")

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, workspace
 
 GEMV_SOURCE = "quant_gemv"
 GEMM_SOURCE = "quant_gemm"
@@ -46,7 +46,6 @@ _GEMM_MIN_SPLIT_K = 256
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 _sm_count: dict = {}
-_gemv_counters: dict = {}
 
 
 def dequantize_bf16(q: torch.Tensor, s: torch.Tensor, g: int) -> torch.Tensor:
@@ -178,12 +177,8 @@ def _sms(device) -> int:
 
 def _counters(device, n: int) -> torch.Tensor:
     """The GEMV's per-column-tile split counters: zero between launches (the
-    kernel leaves them at zero), kept per device."""
-    t = _gemv_counters.get(device.index)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
-        _gemv_counters[device.index] = t
-    return t
+    kernel leaves them at zero), kept per device (ops/kernels/workspace.py)."""
+    return workspace.scratch(device, "gemv_counters", n, torch.int32, zero=True)
 
 
 def gemv_launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, g: int,

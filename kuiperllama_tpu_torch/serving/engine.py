@@ -19,6 +19,11 @@ the page allocator, and reads each decode chunk's output in ONE fetch.
 Sampling draws come from one torch.Generator on the engine's device (the
 JAX engine splits a jax.random key); admission samples greedily, as the
 JAX engine does.
+
+Decode steps replay CUDA graphs on the card (serving/graphs.py; `graphs=`
+as the Generator takes it): the token, position and done tensors, the
+caches and the PagedEngine's packed chunk metadata are fixed tensors that
+admission, retirement and preemption write in place, never rebind.
 """
 
 from __future__ import annotations
@@ -33,8 +38,10 @@ import torch
 
 from ..config import ModelConfig
 from ..models import decoder
-from ..ops.sampling import sample_greedy
+from ..ops.linear import kernels_on
+from ..ops.sampling import DecodeState, sample_greedy
 from .generate import _bucket, _bucket_len, _stop_array, decode_chunk
+from .graphs import GraphCache
 
 
 @dataclass
@@ -96,7 +103,8 @@ class Engine:
                  max_batch: int = 8, max_len: Optional[int] = None,
                  cache_dtype=torch.bfloat16, chunk: int = 32,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-                 stop_ids=frozenset(), seed: int = 0):
+                 stop_ids=frozenset(), seed: int = 0,
+                 graphs: Optional[bool] = None):
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -119,6 +127,14 @@ class Engine:
         self.done = torch.ones((max_batch,), dtype=torch.bool, device=dev)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
+        self.state = DecodeState(self.token, self.pos, self.done,
+                                 self._stop_arr, chunk)
+        if graphs and dev.type != "cuda":
+            raise ValueError(f"graphs=True needs the params on a CUDA device, "
+                             f"not {dev}")
+        if graphs is None:
+            graphs = dev.type == "cuda" and kernels_on()
+        self.graph_cache = GraphCache(dev, self.generator) if graphs else None
 
         self.queue: List[Request] = []
         self.active: Dict[int, Request] = {}  # slot -> request
@@ -187,11 +203,11 @@ class Engine:
         live = max((int(self._pos_np[s]) for s in self.active), default=0)
         active = min(_bucket_len(live + self.chunk + 1), self.max_len)
         self.n_decode_steps += self.chunk
-        toks, self.token, self.pos, self.cache, self.done = decode_chunk(
-            self.cfg, self.params, self.token, self.pos, self.cache,
-            self.done, self.generator, self._stop_arr, steps=self.chunk,
-            temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
-            active_len=active, rope=self.rope)
+        toks = decode_chunk(
+            self.cfg, self.params, self.state, self.cache, self.generator,
+            steps=self.chunk, temperature=self.temperature, top_k=self.top_k,
+            top_p=self.top_p, active_len=active, rope=self.rope,
+            graphs=self.graph_cache)[0]
         return self._meta(toks)
 
     def _meta(self, toks):
@@ -439,6 +455,7 @@ class PagedEngine(Engine):
         if n_pages is None:
             n_pages = max_batch * (-(-max_len // page_size)) + 1
         self._n_pages = n_pages
+        self._packed = None  # the decode chunk's metadata (pack_chunk_meta)
         super().__init__(cfg, params, tokenizer, **kw)
         self.allocator = PageAllocator(
             n_pages=n_pages, page_size=page_size, max_seqs=self.max_batch,
@@ -621,7 +638,7 @@ class PagedEngine(Engine):
         return token, done
 
     def _run_chunk(self):
-        from ..models.paged import decode_chunk_paged_packed, pack_chunk_meta
+        from ..models.paged import pack_chunk_meta, run_chunk_paged, unpack_chunk_meta
         from ..ops.kernels.paged_attention import build_work_list
 
         # shrink the decode chunk while an admission could begin soon (a wave
@@ -666,15 +683,24 @@ class PagedEngine(Engine):
             pt = np.where(mask[:, None], pt, 0)
             sl = np.where(mask, sl, 0)
         fb, fp, ft, n_items = build_work_list(pt, sl, self.page_size)
-        packed = self._to_dev(pack_chunk_meta(pt, fb, fp, ft, n_items))
+        # one host-to-device copy into the fixed buffer the step graph reads
+        # (the work list is padded to max_batch * max_pages entries, so its
+        # length never changes)
+        packed = torch.from_numpy(pack_chunk_meta(pt, fb, fp, ft, n_items))
+        if self._packed is None or self._packed.shape != packed.shape:
+            self._packed = packed.to(self.device)
+            if self.graph_cache is not None:
+                self.graph_cache.drop()
+        else:
+            self._packed.copy_(packed)
         self.n_decode_steps += steps
-        (toks, self.token, self.pos, self.k_pages, self.v_pages,
-         self.done) = decode_chunk_paged_packed(
-            self.cfg, self.params, self.token, self.pos, self.k_pages,
-            self.v_pages, self.done, self.generator, self._stop_arr, packed,
-            shapes=(pt.shape[0], pt.shape[1], len(fb)), steps=steps,
-            page_size=self.page_size, temperature=self.temperature,
-            top_k=self.top_k, top_p=self.top_p, rope=self.rope)
+        toks = run_chunk_paged(
+            self.cfg, self.params, self.state, self.k_pages, self.v_pages,
+            self.generator,
+            unpack_chunk_meta(self._packed, (pt.shape[0], pt.shape[1], len(fb))),
+            steps, page_size=self.page_size, temperature=self.temperature,
+            top_k=self.top_k, top_p=self.top_p, rope=self.rope,
+            graphs=self.graph_cache)
         return self._meta(toks)
 
     def _preempt(self, slot: int):

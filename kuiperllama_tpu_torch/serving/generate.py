@@ -43,7 +43,8 @@ from ..ops.kernels.fused_decode import (fits_vmem, fused_decode_chunk,
                                         fused_decode_step)
 from ..ops.kernels.fused_decode_big import fits_vmem_big, fused_decode_step_big
 from ..ops.linear import linear
-from ..ops.sampling import sample_token
+from ..ops.sampling import DecodeState, sample_token
+from .graphs import GraphCache, run_steps
 
 MAX_STOP_IDS = 8
 
@@ -89,14 +90,15 @@ def _greedy(temperature: float, top_k: int, top_p: float) -> bool:
     return temperature <= 0.0 and top_k == 0 and top_p >= 1.0
 
 
-def decode_chunk(cfg: ModelConfig, params, token, pos, kv_cache, done,
-                 generator, stop_ids, steps: int, temperature: float = 0.0,
+def decode_chunk(cfg: ModelConfig, params, state: DecodeState, kv_cache,
+                 generator, steps: int, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 1.0, active_len: int = 0,
-                 rope=None, fused: bool = False, drop_past_end: bool = True):
+                 rope=None, fused: bool = False, drop_past_end: bool = True,
+                 graphs: Optional[GraphCache] = None):
     """Run `steps` decode iterations on the device.
 
-    token: int32 [B] current token; pos: int32 [B] its position.
-    done:  bool [B] rows already finished (their pos stays frozen).
+    state: the batch's token, pos (int32 [B]), done (bool [B], rows already
+      finished: their pos stays frozen) and stop ids, updated IN PLACE.
     active_len: cap on the cache slots attention reads this chunk (0 = all).
       The window is a view of the cache, so the steps' in-place writes land
       in the full cache and need no write-back.
@@ -110,8 +112,13 @@ def decode_chunk(cfg: ModelConfig, params, token, pos, kv_cache, done,
       other routes).
     drop_past_end: a position at or past the window drops its cache write
       (decoder.forward); False promises that no row gets there.
+    graphs: replay each step as a CUDA graph (serving/graphs.py), keyed as
+      the JAX package keys its jitted chunk: (route, B, window, cache
+      dtype, sampling, mode, drop_past_end). The chunk kernel's route is one
+      launch a chunk already and stays eager.
     Returns (tokens int32 [B, steps], token, pos, kv_cache, done), all on
-    the device. Emitted tokens after a row finishes repeat the stop token.
+    the device; token, pos and done are the state's. Emitted tokens after a
+    row finishes repeat the stop token.
     """
     S = kv_cache["k"].shape[2]
     cache = kv_cache
@@ -121,35 +128,37 @@ def decode_chunk(cfg: ModelConfig, params, token, pos, kv_cache, done,
     small = big = False
     if fused:
         if rope is None:
-            rope = decoder.build_rope(cfg, token.device)
+            rope = decoder.build_rope(cfg, state.token.device)
         blocks, dt, alen = params["blocks"], kv_cache["k"].dtype, cache["k"].shape[2]
         small = fits_vmem(blocks, dt, alen)
         big = (not small and tuning.fused_big_on()
                and fits_vmem_big(blocks, dt, alen))
         fused = small or big
     if small and _greedy(temperature, top_k, top_p) and tuning.fused_chunk_on():
-        x0 = params["tok_emb"][token.long()]  # [1, d]
+        x0 = params["tok_emb"][state.token.long()]  # [1, d]
         toks1, _, _ = fused_decode_chunk(cfg, params, x0, *_flat_cache(cache),
-                                         pos, *rope, steps)
-        done = done | (toks1[:, None] == stop_ids[None, :]).any()
-        return toks1[None], toks1[-1:], pos + steps, kv_cache, done
-    toks = torch.empty((token.shape[0], steps), dtype=torch.int32,
-                       device=token.device)
-    for i in range(steps):
+                                         state.pos, *rope, steps)
+        state.done.copy_(state.done | (toks1[:, None] == state.stop[None, :]).any())
+        state.token.copy_(toks1[-1:])
+        state.pos.add_(steps)
+        return toks1[None], state.token, state.pos, kv_cache, state.done
+    route = "big" if big else "small" if fused else "layered"
+
+    def step():
         if fused:
-            logits = _fused_logits(cfg, params, token, pos, cache, rope, big)
+            logits = _fused_logits(cfg, params, state.token, state.pos, cache,
+                                   rope, big)
         else:
-            logits, _ = decoder.decode_step(cfg, params, token, pos, cache,
-                                            rope=rope, drop_past_end=drop_past_end)
-        nxt = sample_token(logits, generator, temperature, top_k, top_p)
-        nxt = torch.where(done, token, nxt)
-        # a frozen row keeps overwriting the same slot with the same token,
-        # so its cache content is stable
-        new_done = done | (nxt[:, None] == stop_ids[None, :]).any(dim=-1)
-        pos = torch.where(done, pos, pos + 1)
-        done, token = new_done, nxt
-        toks[:, i] = nxt
-    return toks, token, pos, kv_cache, done
+            logits, _ = decoder.decode_step(cfg, params, state.token, state.pos,
+                                            cache, rope=rope,
+                                            drop_past_end=drop_past_end)
+        state.emit(logits, generator, temperature, top_k, top_p)
+
+    key = (route, state.token.shape[0], cache["k"].shape[2], kv_cache["k"].dtype,
+           temperature, top_k, top_p, "fast", drop_past_end)
+    static = (cache["k"], cache["v"], *(rope or ()))
+    toks = run_steps(state, step, steps, graphs, key, static, rng=temperature > 0)
+    return toks, state.token, state.pos, kv_cache, state.done
 
 
 @dataclass
@@ -174,11 +183,22 @@ class Generator:
     the params lie on a CUDA device, the model fits a plan and the kernels
     are on (`ops.linear.set_use_kernels`; KT_FUSED_STEP=0/1 overrides
     auto); True forces them (on the CPU that
-    runs their plain versions, as the tests do); False turns them off."""
+    runs their plain versions, as the tests do); False turns them off.
+
+    graphs: replay each decode step as a CUDA graph (serving/graphs.py; the
+    chunk kernel's route stays eager). None (auto) takes them when the
+    params lie on a CUDA device and the kernels are on; False keeps the
+    eager route; True on the CPU raises ValueError. Both routes run the same
+    step function (`decode_chunk`) and give the same tokens.
+
+    The cache and the decode state of each batch size are kept across calls
+    (a graph keeps their pointers) and zeroed at the start of each call, and
+    one torch.Generator is reseeded with each call's seed."""
 
     def __init__(self, cfg: ModelConfig, params, tokenizer=None,
                  cache_len: Optional[int] = None, cache_dtype=torch.float32,
-                 chunk: int = 64, fused_step: Optional[bool] = None):
+                 chunk: int = 64, fused_step: Optional[bool] = None,
+                 graphs: Optional[bool] = None):
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -187,7 +207,38 @@ class Generator:
         self.chunk = chunk
         self.fused_step = fused_step
         self.device = params["tok_emb"].device
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"graphs=True needs the params on a CUDA device, "
+                             f"not {self.device}")
+        self.graphs = graphs
         self.rope = decoder.build_rope(cfg, self.device)
+        self.rng = torch.Generator(device=self.device)
+        self.graph_cache = GraphCache(self.device, self.rng)
+        self._decode: dict = {}  # B -> (cache, DecodeState)
+
+    def graphs_on(self) -> bool:
+        """Whether decode steps replay CUDA graphs (see `graphs`)."""
+        if self.graphs is not None:
+            return self.graphs
+        return self.device.type == "cuda" and linear_mod.kernels_on()
+
+    def _batch(self, B: int, stop_ids):
+        """The B-row cache and decode state, zeroed, with `stop_ids`."""
+        entry = self._decode.get(B)
+        if entry is None:
+            dev = self.device
+            cache = decoder.init_kv_cache(self.cfg, batch=B, max_len=self.cache_len,
+                                          dtype=self.cache_dtype, device=dev)
+            state = DecodeState(torch.zeros((B,), dtype=torch.int32, device=dev),
+                                torch.zeros((B,), dtype=torch.int32, device=dev),
+                                torch.zeros((B,), dtype=torch.bool, device=dev),
+                                _stop_array((), dev), self.chunk)
+            self._decode[B] = entry = (cache, state)
+        else:
+            entry[0]["k"].zero_()
+            entry[0]["v"].zero_()
+        entry[1].stop.copy_(_stop_array(stop_ids, self.device))
+        return entry
 
     def _fused_ok(self, B: int) -> bool:
         """Whether decode takes a megakernel: B = 1, fused weights and a plan
@@ -238,10 +289,8 @@ class Generator:
         for i, p in enumerate(prompts):
             tokens[i, : lens[i]] = p
 
-        cache = decoder.init_kv_cache(cfg, batch=B, max_len=self.cache_len,
-                                      dtype=self.cache_dtype, device=dev)
-        stop_arr = _stop_array(stop_ids, dev)
-        gen = torch.Generator(device=dev)
+        cache, state = self._batch(B, stop_ids)
+        gen = self.rng
         gen.manual_seed(seed)
 
         t0 = time.perf_counter()
@@ -251,26 +300,29 @@ class Generator:
             rope=self.rope,
         )
         token = sample_token(last_logits, gen, temperature, top_k, top_p)
-        done = (token[:, None] == stop_arr[None, :]).any(dim=-1)
+        state.token.copy_(token)
+        state.done.copy_((token[:, None] == state.stop[None, :]).any(dim=-1))
+        state.pos.copy_(torch.tensor(lens, dtype=torch.int32))
         first = token.cpu().numpy()  # host copy; also syncs prefill
         t1 = time.perf_counter()
         if on_chunk is not None:
             on_chunk(first[:, None])
 
-        pos = torch.tensor(lens, dtype=torch.int32, device=dev)
         budget = min(max_new_tokens, limit - max(lens)) - 1
         out = [[int(first[i])] for i in range(B)]
         max_pos = max(lens)
         fused = self._fused_ok(B)
+        graphs = self.graph_cache if self.graphs_on() else None
+        done = state.done
         while budget > 0 and not bool(done.all()):
             steps = min(self.chunk, budget)
             assert max_pos + steps <= limit, (max_pos, steps, limit)
             active = min(_bucket_len(max_pos + steps + 1), self.cache_len)
-            toks, token, pos, cache, done = decode_chunk(
-                cfg, self.params, token, pos, cache, done, gen, stop_arr,
-                steps=steps, temperature=temperature, top_k=top_k, top_p=top_p,
+            toks, _, _, cache, done = decode_chunk(
+                cfg, self.params, state, cache, gen, steps=steps,
+                temperature=temperature, top_k=top_k, top_p=top_p,
                 active_len=active, rope=self.rope, fused=fused,
-                drop_past_end=False,
+                drop_past_end=False, graphs=graphs,
             )
             max_pos += steps
             toks_np = toks.cpu().numpy()  # the chunk's one trip to the host

@@ -949,3 +949,105 @@ def test_exp_int8_refuses_shapes(dev):
     w2, s2, x2 = _int8_stack(dev, 1, 1024, 320, 64)
     with pytest.raises(ValueError, match="multiple of 256"):
         ei.exp_int8(w2, s2, x2, 64, "bf16")
+
+
+# ---------------------------------------------------------------------------
+# Decode steps replayed as CUDA graphs (serving/graphs.py) against the eager
+# route on the same weights: the same tokens (greedy, and sampled from one
+# seed) and the same launch counts, on the layered, small and big per-step
+# routes (2 layers at full width) and on both engines.
+
+GRAPH_PROMPT = list(range(5, 37))
+
+
+def _graph_model(dev, preset, g):
+    from kuiperllama_tpu_torch.config import preset_config
+    from kuiperllama_tpu_torch.fuse import fuse_params
+    from kuiperllama_tpu_torch.params import random_params_device
+    from kuiperllama_tpu_torch.quant import cast_scales
+
+    cfg = preset_config(preset, n_layers=2, seq_len=512)
+    params = random_params_device(cfg, device=dev, seed=3, quantize=True,
+                                  group_size=g)
+    return cfg, fuse_params(cast_scales(params, torch.bfloat16))
+
+
+def _launch_counts():
+    from kuiperllama_tpu_torch.serving.graphs import counted_kernels
+
+    return [w.launches for w in counted_kernels()]
+
+
+SAMPLINGS = [{}, dict(temperature=0.8, top_k=40, top_p=0.9)]
+
+
+@pytest.mark.parametrize("route,preset,g", [("layered", "llama2-7b", 256),
+                                            ("small", "tinyllama-1.1b", 256),
+                                            ("big", "llama2-7b", 64)])
+@pytest.mark.parametrize("sampling", SAMPLINGS)
+def test_decode_graphs_equal_eager(dev, monkeypatch, route, preset, g, sampling):
+    from kuiperllama_tpu_torch.serving.generate import Generator
+
+    if route == "big":
+        monkeypatch.setenv("KT_FUSED_BIG", "1")
+    cfg, params = _graph_model(dev, preset, g)
+    out = {}
+    for graphs in (False, True):
+        gen = Generator(cfg, params, cache_len=512, cache_dtype=torch.bfloat16,
+                        chunk=16, graphs=graphs)
+        assert gen._fused_ok(1) == (route != "layered")
+        before = _launch_counts()
+        ids = gen.generate_ids(GRAPH_PROMPT, max_new_tokens=40, seed=5,
+                               **sampling)[0]
+        torch.cuda.synchronize()
+        out[graphs] = ids, [a - b for a, b in zip(_launch_counts(), before)]
+    assert out[True] == out[False]
+    assert len(out[True][0]) == 40
+    # 39 decode steps in chunks of 16, 16, 7 in one 256-slot window: one
+    # eager step, one capture, 38 replays
+    assert (gen.graph_cache.n_captures, gen.graph_cache.n_replays) == (1, 38)
+    again = gen.generate_ids(GRAPH_PROMPT, max_new_tokens=40, seed=5, **sampling)[0]
+    assert again == out[True][0] and gen.graph_cache.n_captures == 1
+
+
+@pytest.mark.parametrize("cls", ["Engine", "PagedEngine"])
+@pytest.mark.parametrize("sampling", SAMPLINGS)
+def test_engine_graphs_equal_eager(dev, cls, sampling):
+    """Four requests of 20 + 40 tokens; the PagedEngine's 8-token pages in a
+    pool too small for all four preempt and resume the youngest."""
+    from kuiperllama_tpu_torch.serving import engine
+
+    cfg, params = _graph_model(dev, "tinyllama-1.1b", 256)
+    kw = dict(max_batch=4, max_len=256, cache_dtype=torch.bfloat16, chunk=16,
+              seed=3, **sampling)
+    if cls == "PagedEngine":
+        kw.update(page_size=8, n_pages=23, reserve_growth=False)
+    out = {}
+    for graphs in (False, True):
+        eng = getattr(engine, cls)(cfg, params, graphs=graphs, **kw)
+        reqs = [engine.Request(prompt_ids=[(7 * i + j) % 500 + 1 for j in range(20)],
+                               max_new_tokens=40) for i in range(4)]
+        before = _launch_counts()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        out[graphs] = ([r.out_ids for r in reqs], eng.n_preemptions,
+                       [a - b for a, b in zip(_launch_counts(), before)])
+    assert out[True] == out[False]
+    assert (out[True][1] > 0) == (cls == "PagedEngine")
+    assert eng.graph_cache.n_captures >= 1
+    assert eng.graph_cache.n_replays == eng.n_decode_steps - eng.graph_cache.n_captures
+
+
+def test_sampling_race_equals_multinomial(dev):
+    """The sampler's exponential race draws what torch.multinomial(probs, 1)
+    draws from the same generator state, on the card as on the CPU."""
+    from kuiperllama_tpu_torch.ops.sampling import sample_token
+
+    logits = torch.randn((4, 32000), device=dev)
+    g = torch.Generator(device=dev)
+    for seed in range(3):
+        g.manual_seed(seed)
+        want = torch.multinomial(torch.softmax(logits / 0.7, -1), 1, generator=g)
+        g.manual_seed(seed)
+        got = sample_token(logits, g, temperature=0.7)
+        assert torch.equal(got, want[:, 0].to(torch.int32))
