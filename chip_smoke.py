@@ -133,6 +133,42 @@ last line:
      each exits 0 with the one-line contract, every selftest error within
      TOL, PAGED_TOL (fp32 pools) and FUSED_TOL, the megakernel's argmax
      equal, and the selftest launched each kernel it holds.
+ 15. parallel (kuiperllama_tpu_torch/parallel): first the GEMV, the GEMM
+     and the paged kernel at the shard shapes of the parallel paths, held
+     against their plain versions (Llama-2-7B INT8 g 64 at tp = 2: each
+     projection on the kernel its route takes at one row, the GEMM at 32
+     and 8 rows; the paged kernel at tp = 2's 16 kv heads and at seqpar's
+     full Qwen2.5-0.5B lanes over one rank's block of pages, with rows it
+     does not cover, merged against the unsplit kernel). Then four rows,
+     each beside the single-device run on the same weights (seed 0, bf16
+     activations and cache, cache length 1024) in this process:
+     (a) the Generator through KuiperModel.init(mesh=) at tp = 2 on two gloo
+     ranks (Llama-2-7B INT8 g 64, bf16 scales, full width and depth; a
+     32-token prompt, 128 greedy tokens; then an exact run of 16 tokens at
+     fp32 activations and cache with the INT8 kernels in exact mode, whose
+     tokens must equal one device's and whose logits must lie within
+     PAR_EXACT_TOL); (b) PagedEngine(mesh=) at tp = 2
+     on two gloo ranks at phase 10's settings (8 slots, 16 requests of 32 +
+     128 tokens, 64-step chunks, 128-token pages); (c) the (b) engine
+     through ShardedPagedStep on a world of one NCCL rank in this process,
+     graphs on: tokens and prefill logits bit-identical to the
+     single-device engine's graph route, the same launches, and each decode
+     graph's captured collectives equal to the analytic bill; (d)
+     PagedEngine(mesh=, seqpar=True) at sp = 2 on two gloo ranks
+     (Qwen2.5-0.5B bf16, prefill_chunk 256, a 768-token prompt on every 4th
+     request; then an exact run of 4 requests of 16 tokens on fp32 copies
+     of the weights and an fp32 pool, tokens equal to one device's and
+     prefill logits within PAR_EXACT_TOL). The gloo ranks are torch.multiprocessing spawns, all on
+     cuda:0 (NCCL refuses two ranks on one device; gloo takes the CUDA
+     tensors and passes them through the host, so their times are those of
+     two gloo ranks on one card, not of NVLink). Each row: both ranks'
+     tokens identical and equal to the single-device run's up to a logit
+     tie at the first difference (PAR_TIE_TOL, fp32 logits), the prefill
+     logits' max relative error within the full-depth FUSED_TOL, tokens/s and ms per decode step, the
+     seconds inside the collectives wrapper, the counted collectives
+     against the analytic bill (2 L all-reduces and 1 all-gather a tp
+     decode step; L and 1 + L under seqpar), exact launches per rank of
+     quant_gemv, quant_gemm and paged_attention, and peak memory per rank.
 Then one {"kernels": [...]} line (each kernel's launches on every path in
 `launches_by_path`, the new phases' and the bench children's included), the
 nvidia-smi line of the card, and the last line {"ok": true, "device": {...}}.
@@ -257,6 +293,40 @@ TIE_TOL = 2e-3
 BENCH_RUNS = [("selftest", ["--selftest"]), ("default", []),
               ("tinyllama-1.1b", ["--model", "tinyllama-1.1b"]), ("engine", ["--engine"])]
 
+# the parallel phase: two ranks on the one card; Llama-2-7B INT8 at g 64
+# (w2's 172 scale groups split 86 a rank at tp 2; g 256 leaves 21.5, which
+# validate_tp refuses), its shard shapes (name, K, N), Qwen2.5-0.5B's
+# seqpar engine with chunked prefill and a long prompt on every 4th request
+PAR_RANKS = 2
+PAR_GROUP = 64
+PAR_SHAPES = [("wqkv", 4096, 6144), ("wo", 2048, 4096), ("w13", 4096, 11008),
+              ("w2", 5504, 4096), ("lm_head", 4096, 16000)]
+PAR_PREFILL_CHUNK = 256
+PAR_SEQPAR_PROMPT = 768
+PAR_TIMEOUT_S = 300
+# a first difference from the single-device run is a tie when the two
+# tokens' fp32 logits lie within this share of max(1, max|logit|). TIE_TOL
+# is the 2-layer limit; at full depth (32 and 24 layers) two valid
+# summation orders move the logits further (the tp = 2 prefill logits sat
+# 2.1% of max|logit| from the single-device ones on an H100 80GB HBM3 at
+# 700 W: PERF.md), so the rows take the full-depth limit of the other
+# full-depth comparisons with bf16 activations (FUSED_TOL) and report the
+# gap against TIE_TOL beside it
+PAR_TIE_TOL = FUSED_TOL[("full depth", False)]
+# row (a)'s exact run: PAR_EXACT_NEW greedy tokens at fp32 activations and
+# cache with the INT8 kernels in exact mode (fp32 x against the fp32
+# dequantized weights: no bf16 rounding left), where two ranks differ from
+# one device by fp32 summation order only. Tokens must be equal and every
+# step's logits within PAR_EXACT_TOL of max|logit|; a wrong shard or merge
+# moves them by the order of the logits themselves
+PAR_EXACT_NEW = 16
+PAR_EXACT_TOL = 1e-4
+# row (d)'s exact run: the first PAR_EXACT_REQUESTS requests (the 768-token
+# prompt among them, so decode and chunked prefill merge both shards'
+# pages) of PAR_EXACT_NEW tokens on fp32 copies of the bf16 weights with an
+# fp32 pool (dense fp32 matmuls, TF32 off): tokens equal, prefill logits
+# within PAR_EXACT_TOL
+PAR_EXACT_REQUESTS = 4
 # Llama-2-7B main-path projections: (name, K, N, launches per decode token)
 GEMV_SHAPES = [("wqkv", 4096, 12288, 32), ("wo", 4096, 4096, 32),
                ("w13", 4096, 22016, 32), ("w2", 11008, 4096, 32),
@@ -2433,6 +2503,657 @@ def phase_bench(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: tensor and sequence parallelism (parallel/*), two ranks on the card
+
+
+def par_kernels(dev):
+    """The three kernels of the parallel paths at shard shapes they run
+    nowhere else, held against their plain versions: Llama-2-7B INT8 g 64
+    at tp = 2 (each projection on the kernel its route takes at one row,
+    the GEMM at the prefill's 32 rows and the engine's 8), and the paged
+    kernel at tp = 2's 16 kv heads of 7B and at seqpar's full Qwen2.5-0.5B
+    lanes over one rank's block of pages (local ids, rows it does not cover)."""
+    import numpy as np
+    import torch
+
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+    from kuiperllama_tpu_torch.ops.linear import GEMV_MAX_GROUPS
+    from kuiperllama_tpu_torch.parallel.seqpar import build_work_lists_sharded
+    from kuiperllama_tpu_torch.utils.profiling import device_time
+
+    g = PAR_GROUP
+    for i, (name, K, N) in enumerate(PAR_SHAPES):
+        kind = "quant_gemv" if K // g <= GEMV_MAX_GROUPS else "quant_gemm"
+        check_kernel(kind, dev, 1, K, N, g, "fast", SEED + 200 + i, f"tp2 {name}")
+        if name != "lm_head":
+            for M in (PREFILL_M, ENGINE_SLOTS):
+                check_kernel("quant_gemm", dev, M, K, N, g, "fast", SEED + 210 + i + M,
+                             f"tp2 {name}")
+    ok = True
+    # tp = 2: each rank's 16 of Llama-2-7B's 32 kv heads (lanes 2048)
+    q, kp, vp, work, sl, _ = paged_inputs(dev, 16, 16, 128, torch.bfloat16, SEED + 220, 2)
+    held = hold_paged(q, kp, vp, work, sl, 1)
+    ms = device_time(lambda: pa.paged_attention_flat(q, kp, vp, *work, sl,
+                                                     page_size=PAGED_PS, layer_idx=1),
+                     device="cuda") * 1e3
+    good = held["rel_err_out"] <= PAGED_TOL["bf16"] and held["finite"]
+    emit(dict(phase="kernel", kernel="paged_attention", model="llama2-7b tp2 rank",
+              H=16, KH=16, hd=128, seq_lens=PAGED_LENS, **held, ms=ms,
+              tol=PAGED_TOL["bf16"], ok=good, card=CARD))
+    ok = ok and good
+    # seqpar over 2 ranks: Qwen2.5-0.5B's full 128 lanes, each rank's block
+    # of the pages with local ids; the partials merge to the unsplit kernel
+    q, kp, vp, work, sl, pt = paged_inputs(dev, 14, 2, 64, torch.bfloat16, SEED + 230, 2)
+    P = kp.shape[1] - kp.shape[1] % 2
+    kp, vp = kp[:, :P].contiguous(), vp[:, :P].contiguous()
+    # the shuffled table within the even pool (the dropped page's slot
+    # reads page 1, which another row reads too)
+    pt = np.where(pt < P, pt, 1)
+    full = [torch.from_numpy(a).to(dev) for a in pa.build_work_list(pt, sl.cpu().numpy(),
+                                                                   PAGED_PS)]
+    ref = pa.paged_attention_flat(q, kp, vp, *full, sl, page_size=PAGED_PS, layer_idx=1)
+    fb, fp, ft, ni, cov = build_work_lists_sharded(pt, sl.cpu().numpy(), PAGED_PS, 2, P,
+                                                   pad_to=pt.size)
+    parts, errs, identity = [], [], True
+    for r in range(2):
+        lw = [torch.from_numpy(np.ascontiguousarray(a[r])).to(dev) for a in (fb, fp, ft, ni)]
+        kr, vr = (p[:, r * P // 2:(r + 1) * P // 2].contiguous() for p in (kp, vp))
+        args = (q, kr, vr, *lw, sl)
+        acc, m, l = pa.paged_attention_flat(*args, page_size=PAGED_PS, layer_idx=1)
+        ra, rm, rl = pa.paged_attention_flat_ref(*args, page_size=PAGED_PS, layer_idx=1)
+        c = torch.from_numpy(cov[r]).to(dev)
+        errs.append(rel_err(acc[c] / l[c][..., None], ra[c] / rl[c][..., None]))
+        # rows this rank does not cover: the flash identity on both sides
+        identity = identity and bool((acc[~c] == 0).all() and (l[~c] == 0).all()
+                                     and (m[~c] == rm[~c]).all())
+        parts.append((acc, m, l))
+    merged = pa.merge_flash_many(*(torch.stack([p[j] for p in parts]) for j in range(3)))
+    want = ref[0] / ref[2][..., None]
+    merge_err = rel_err(merged, want)
+    good = (max(errs) <= PAGED_TOL["bf16"] and merge_err <= PAGED_TOL["bf16"]
+            and identity and bool(merged.isfinite().all()))
+    emit(dict(phase="kernel", kernel="paged_attention", model="qwen2.5-0.5b seqpar rank",
+              H=14, KH=2, hd=64, pages=P, seq_lens=PAGED_LENS,
+              rows_covered=[int(c.sum()) for c in cov], items=ni[:, 0].tolist(),
+              rel_err_by_rank=errs, uncovered_rows_identity=identity,
+              merged_vs_unsplit_rel_err=merge_err,
+              tol=PAGED_TOL["bf16"], ok=good, card=CARD))
+    ok = ok and good
+    if not ok:
+        raise AssertionError("paged_attention disagrees at the parallel shapes")
+
+
+def par_device():
+    """A rank's device: the pool makes cuda:0 every rank's current one."""
+    import torch
+
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def par_prompt(i, n, vocab):
+    return [(7 * i + j) % (vocab - 1) + 1 for j in range(n)]
+
+
+def par_requests(vocab, long_prompt=0):
+    """The engine rows' requests (phase 10's): ENGINE_REQUESTS of
+    ENGINE_PROMPT tokens, every 4th of `long_prompt` when set."""
+    from kuiperllama_tpu_torch.serving.engine import Request
+
+    return [Request(prompt_ids=par_prompt(i, long_prompt if long_prompt and i % 4 == 3
+                                          else ENGINE_PROMPT, vocab),
+                    max_new_tokens=ENGINE_NEW) for i in range(ENGINE_REQUESTS)]
+
+
+def par_model(dev, seqpar):
+    """The parallel rows' unfused weights from SEED: Llama-2-7B INT8 g 64
+    with bf16 scales, or (seqpar) Qwen2.5-0.5B bf16."""
+    import torch
+
+    from kuiperllama_tpu_torch.config import preset_config
+    from kuiperllama_tpu_torch.params import random_params_device
+    from kuiperllama_tpu_torch.quant import cast_scales
+
+    if seqpar:
+        cfg = preset_config("qwen2.5-0.5b", seq_len=CACHE_LEN)
+        return cfg, random_params_device(cfg, device=dev, seed=SEED)
+    cfg = preset_config("llama2-7b", seq_len=CACHE_LEN)
+    params = random_params_device(cfg, device=dev, seed=SEED, quantize=True,
+                                  group_size=PAR_GROUP)
+    return cfg, cast_scales(params, torch.bfloat16)
+
+
+def par_engine_kw(seqpar):
+    kw = dict(max_batch=ENGINE_SLOTS, max_len=CACHE_LEN, chunk=ENGINE_CHUNK,
+              page_size=ENGINE_PS)
+    if seqpar:
+        kw["prefill_chunk"] = PAR_PREFILL_CHUNK
+    return kw
+
+
+def par_prefill_logits(eng, ids):
+    """The last-token logits [V] of a prefill of `ids` through the engine's
+    prefill entry (its step's, on a rank), writing only the garbage page."""
+    import torch
+
+    from kuiperllama_tpu_torch.models.paged import prefill_paged
+
+    dev = eng.device
+    toks = torch.tensor([ids], dtype=torch.int32, device=dev)
+    lens = torch.tensor([len(ids)], dtype=torch.int32, device=dev)
+    pages = torch.full((1, len(ids)), 2 ** 30, dtype=torch.int32, device=dev)
+    fn = prefill_paged if eng._sharded is None else eng._sharded.prefill
+    return fn(eng.cfg, eng.params, toks, lens, eng.k_pages, eng.v_pages, pages,
+              rope=eng.rope)[0][0].float().cpu().numpy()
+
+
+def par_run_engine(eng, vocab, long_prompt, dev):
+    """Phase 10's timed engine run: two warm-up requests, then every request
+    submitted at t0, counters zeroed just before and read just after; the
+    collectives of each decode chunk recorded beside its steps."""
+    import torch
+
+    from kuiperllama_tpu_torch.parallel import collectives
+    from kuiperllama_tpu_torch.serving.engine import Request
+
+    eng.run([Request(prompt_ids=par_prompt(i, 16, vocab), max_new_tokens=4)
+             for i in range(2)])
+    torch.cuda.synchronize()
+    reqs = par_requests(vocab, long_prompt)
+    chunks = []
+    if eng._sharded is not None:
+        run = eng._sharded.run_chunk
+
+        def counted(*args, **kw):
+            before = collectives.bill()
+            out = run(*args, **kw)
+            after = collectives.bill()
+            chunks.append((args[7], {op: {k: after[op][k] - before[op][k]
+                                          for k in ("count", "bytes")} for op in after}))
+            return out
+
+        eng._sharded.run_chunk = counted
+    eng.n_decode_steps = eng.n_prefill_calls = 0
+    eng.prefill_wall_s = 0.0
+    zero_launches()
+    collectives.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(out_ids=[r.out_ids for r in reqs], wall_s=wall,
+               steps=eng.n_decode_steps, prefills=eng.n_prefill_calls,
+               prefill_wall_s=eng.prefill_wall_s, preemptions=eng.n_preemptions,
+               finished=len(done), launches=read_launches(), bill=collectives.bill(),
+               chunks=chunks, peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+    if eng._sharded is not None:
+        eng._sharded.run_chunk = run
+    out["prefill_logits"] = par_prefill_logits(eng, reqs[0].prompt_ids)
+    return out
+
+
+def par_exact_run(cfg, params, prompt, dev, forward_fn=None):
+    """Row (a)'s exact run: PAR_EXACT_NEW greedy tokens after `prompt` at
+    fp32 activations (params placed in fp32) and an fp32 cache, the INT8
+    kernels in exact mode, through decoder.prefill and decode_step (with
+    `forward_fn`, this rank's share): (ids, logits [1 + new, V] numpy)."""
+    import torch
+
+    from kuiperllama_tpu_torch.models import decoder
+
+    cache = (decoder.init_kv_cache(cfg, 1, CACHE_LEN, torch.float32, device=dev)
+             if forward_fn is None
+             else forward_fn.init_cache(1, CACHE_LEN, torch.float32, device=dev))
+    tokens = torch.tensor([prompt], dtype=torch.int32, device=dev)
+    logits, cache = decoder.prefill(cfg, params, tokens, cache, mode="exact",
+                                    forward_fn=forward_fn)
+    rows, ids = [logits[0]], []
+    for i in range(PAR_EXACT_NEW):
+        ids.append(int(torch.argmax(rows[-1])))
+        tok = torch.tensor([ids[-1]], dtype=torch.int32, device=dev)
+        pos = torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev)
+        logits, cache = decoder.decode_step(cfg, params, tok, pos, cache, mode="exact",
+                                            drop_past_end=False, forward_fn=forward_fn)
+        rows.append(logits[0])
+    return ids, torch.stack(rows).float().cpu().numpy()
+
+
+def par_rank_generator():
+    """Row (a) on one rank: KuiperModel.init(mesh=) at tp = 2 over the pool's
+    gloo group, bf16 activations and cache; a warm-up of 8 tokens, then 128
+    greedy tokens from the 32-token prompt with every count zeroed just
+    before and read just after; the prompt's last logits through the
+    Generator's prefill (the sharded forward). Then the exact run on
+    KuiperModel.init(dtype=fp32, mesh=)."""
+    import torch
+
+    from kuiperllama_tpu_torch.api import KuiperModel
+    from kuiperllama_tpu_torch.models import decoder
+    from kuiperllama_tpu_torch.parallel import collectives
+    from kuiperllama_tpu_torch.parallel.mesh import make_mesh
+
+    dev = par_device()
+    mesh = make_mesh(1, PAR_RANKS)
+    cfg, params = par_model(dev, False)
+    model = KuiperModel(cfg, params).init(dtype=torch.bfloat16, device=dev,
+                                          cache_len=CACHE_LEN, mesh=mesh,
+                                          cache_dtype=torch.bfloat16)
+    prompt = par_prompt(0, ENGINE_PROMPT, cfg.vocab_size)
+    gen = model._generator
+    cache = model._forward_fn.init_cache(1, CACHE_LEN, torch.bfloat16, device=dev)
+    logits = decoder.prefill(cfg, model.params, torch.tensor([prompt], device=dev),
+                             cache, rope=gen.rope, forward_fn=model._forward_fn)
+    logits = logits[0][0].float().cpu().numpy()
+    del cache
+    gen.generate_batch_ids([prompt], max_new_tokens=8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    collectives.reset()
+    rows, prefill_s, decode_s = gen.generate_batch_ids([prompt], max_new_tokens=ENGINE_NEW)
+    out = dict(ids=rows[0], prefill_s=prefill_s, decode_s=decode_s,
+               launches=read_launches(), bill=collectives.bill(),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+               graphs=gen.graphs_on(), prefill_logits=logits, backend=mesh.backend)
+    del model, gen
+    model = KuiperModel(cfg, params).init(dtype=torch.float32, device=dev,
+                                          cache_len=CACHE_LEN, mesh=mesh)
+    del params
+    out["exact_ids"], out["exact_logits"] = par_exact_run(
+        cfg, model.params, prompt, dev, model._forward_fn)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_exact_engine(cfg, params, dev, mesh=None):
+    """Row (d)'s exact run on a PagedEngine over fp32 copies of `params`
+    and an fp32 pool: seqpar over `mesh`, or one device without it.
+    Returns (out_ids, the first prompt's last prefill logits)."""
+    import torch
+
+    from kuiperllama_tpu_torch.params import to_device
+    from kuiperllama_tpu_torch.serving.engine import PagedEngine, Request
+
+    eng = PagedEngine(cfg, to_device(params, device=dev, dtype=torch.float32),
+                      mesh=mesh, seqpar=mesh is not None, cache_dtype=torch.float32,
+                      **par_engine_kw(True))
+    reqs = [Request(prompt_ids=r.prompt_ids, max_new_tokens=PAR_EXACT_NEW)
+            for r in par_requests(cfg.vocab_size, PAR_SEQPAR_PROMPT)[:PAR_EXACT_REQUESTS]]
+    eng.run(reqs)
+    out = [r.out_ids for r in reqs], par_prefill_logits(eng, reqs[0].prompt_ids)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_rank_engine(seqpar):
+    """Row (b) (Llama-2-7B, tp = 2) or (d) (Qwen2.5-0.5B, seqpar sp = 2) on
+    one rank: PagedEngine(mesh=, seqpar=) at phase 10's settings."""
+    import torch
+
+    from kuiperllama_tpu_torch.parallel.mesh import make_mesh
+    from kuiperllama_tpu_torch.serving.engine import PagedEngine
+
+    dev = par_device()
+    mesh = make_mesh(1, PAR_RANKS)
+    cfg, params = par_model(dev, seqpar)
+    eng = PagedEngine(cfg, params, mesh=mesh, seqpar=seqpar, cache_dtype=torch.bfloat16,
+                      **par_engine_kw(seqpar))
+    del params  # the engine keeps this rank's slices only
+    out = par_run_engine(eng, cfg.vocab_size, PAR_SEQPAR_PROMPT if seqpar else 0, dev)
+    out.update(graphs=eng.graph_cache is not None, n_pages=eng._n_pages,
+               free_pages=eng._pool_pages, pool_shape=list(eng.k_pages.shape))
+    del eng
+    torch.cuda.empty_cache()
+    if seqpar:  # the same weights again, from SEED
+        out["exact_ids"], out["exact_logits"] = par_exact_engine(
+            cfg, par_model(dev, True)[1], dev, mesh)
+    return out
+
+
+def par_tie_check(cfg, params, prompt, a, b, dev):
+    """At a first difference: the single-device logits after `prompt` (the
+    prompt and the tokens both runs share) and whether tokens a and b are
+    within TIE_TOL of a tie there. The logits are taken in fp32: the bf16
+    logits the model samples from are a bf16 ulp apart (2^-6 near 3) or
+    equal, too coarse to measure a gap against TIE_TOL. The final normed
+    hidden state is read out exactly (an identity lm_head in bf16), then
+    multiplied by the lm_head's weights in fp32."""
+    import torch
+
+    from kuiperllama_tpu_torch.models import decoder
+    from kuiperllama_tpu_torch.quant import QuantTensor, dequantize
+
+    head = params["lm_head"]
+    w = dequantize(head) if isinstance(head, QuantTensor) else head.float()
+    eye = dict(params, lm_head=torch.eye(cfg.dim, dtype=torch.bfloat16, device=dev))
+    cache = decoder.init_kv_cache(cfg, 1, len(prompt) + 1, torch.bfloat16, device=dev)
+    h, _ = decoder.prefill(cfg, eye, torch.tensor([prompt], device=dev), cache)
+    logits = (h.float() @ w)[0]
+    scale = max(1.0, float(logits.abs().max()))
+    gap = float(logits[a] - logits[b])
+    return dict(tie=logit_tie(logits, a, b, PAR_TIE_TOL), gap=gap, scale=scale,
+                gap_share=abs(gap) / scale, within_tie_tol=logit_tie(logits, a, b, TIE_TOL))
+
+
+def par_agreement(cfg, params, prompts, single, ranks, dev):
+    """Per request: the ranks' tokens identical, and equal to the
+    single-device run's up to a logit tie at the first difference (nothing
+    after it compared)."""
+    same = all(r == ranks[0] for r in ranks[1:])
+    diffs = []
+    for i, (prompt, want, got) in enumerate(zip(prompts, single, ranks[0])):
+        j = first_difference(want, got)
+        if j is None:
+            continue
+        if j >= min(len(want), len(got)):
+            diffs.append(dict(request=i, at=j, tie=False, lengths=[len(want), len(got)]))
+            continue
+        diffs.append(dict(request=i, at=j, single=want[j], ranks=got[j],
+                          **par_tie_check(cfg, params, prompt + want[:j], want[j],
+                                          got[j], dev)))
+    return dict(ranks_identical=same, differing=len(diffs), first_differences=diffs[:4],
+                max_gap_share=max((d.get("gap_share", 1.0) for d in diffs), default=0.0),
+                tie_limit=PAR_TIE_TOL, tokens_ok=same and all(d["tie"] for d in diffs))
+
+
+def par_bill_ok(bill, expect):
+    return all(bill[op]["count"] == expect[op]["count"]
+               and bill[op]["bytes"] == expect[op]["bytes"] for op in expect)
+
+
+def par_chunks_ok(chunks, per_step):
+    """Every decode chunk's collectives equal `steps` times the per-step bill."""
+    return bool(chunks) and all(
+        d[op]["count"] == steps * per_step[op]["count"]
+        and d[op]["bytes"] == steps * per_step[op]["bytes"]
+        for steps, d in chunks for op in per_step)
+
+
+def par_rank_fields(outs, prefix=""):
+    """The per-rank fields of a row."""
+    return {f"{prefix}launches_by_rank": [o["launches"] for o in outs],
+            f"{prefix}collectives_by_rank": [o["bill"] for o in outs],
+            f"{prefix}collective_seconds_by_rank": [
+                sum(e["seconds"] for e in o["bill"].values()) for o in outs],
+            f"{prefix}peak_memory_bytes_by_rank": [o["peak_memory_bytes"] for o in outs]}
+
+
+def par_single_engine(cfg, params, seqpar, dev):
+    """The single-device PagedEngine (graph route) on the same (fused)
+    weights."""
+    import torch
+
+    from kuiperllama_tpu_torch.serving.engine import PagedEngine
+
+    eng = PagedEngine(cfg, params, cache_dtype=torch.bfloat16, **par_engine_kw(seqpar))
+    out = par_run_engine(eng, cfg.vocab_size, PAR_SEQPAR_PROMPT if seqpar else 0, dev)
+    out.update(graphs=graph_stats(eng.graph_cache), free_pages=eng._pool_pages)
+    return out, eng
+
+
+def phase_parallel(dev):
+    """Rows (a)-(d): the port's tensor and sequence parallelism on the one
+    card, each beside the single-device run on the same weights in this
+    process. (a) and (b) and (d) are two gloo ranks in spawned processes on
+    cuda:0 (their collectives pass through the host; NCCL refuses two ranks
+    on one device), (c) a world of one NCCL rank in this process, whose
+    collectives are captured in the decode graphs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kuiperllama_tpu_torch.api import KuiperModel
+    from kuiperllama_tpu_torch.fuse import fuse_params
+    from kuiperllama_tpu_torch.models import decoder
+    from kuiperllama_tpu_torch.parallel import collectives
+    from kuiperllama_tpu_torch.parallel.launch import RankPool
+    from kuiperllama_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from kuiperllama_tpu_torch.ops.linear import GEMV_MAX_GROUPS
+    from kuiperllama_tpu_torch.serving.engine import PagedEngine
+    from kuiperllama_tpu_torch.serving.generate import Generator, _bucket
+
+    par_kernels(dev)
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="kt_rdv_")
+    cfg, unfused = par_model(dev, False)
+    L = cfg.n_layers
+    params = fuse_params(unfused)
+    prompt = par_prompt(0, ENGINE_PROMPT, cfg.vocab_size)
+
+    # single-device references: the Generator and the engine, graph routes
+    gen = Generator(cfg, params, cache_len=CACHE_LEN, cache_dtype=torch.bfloat16,
+                    chunk=128)
+    single_ids, _, single_decode_s, single_launches, _ = timed_generate(
+        gen, prompt, dev, new=ENGINE_NEW)
+    cache = decoder.init_kv_cache(cfg, 1, CACHE_LEN, torch.bfloat16, device=dev)
+    single_logits = decoder.prefill(cfg, params, torch.tensor([prompt], device=dev),
+                                    cache)[0][0].float().cpu().numpy()
+    del gen, cache
+    exact = KuiperModel(cfg, unfused).init(dtype=torch.float32, device=dev,
+                                           cache_len=CACHE_LEN)
+    exact_ids, exact_logits = par_exact_run(cfg, exact.params, prompt, dev)
+    del exact
+    eng_single, eng = par_single_engine(cfg, params, False, dev)
+    del eng
+    torch.cuda.empty_cache()
+
+    # (c) the (b) engine through ShardedPagedStep on a world of one NCCL rank
+    initialize_distributed(f"file://{tmp}/nccl", 1, 0, backend="nccl", device_id=dev)
+    try:
+        mesh = make_mesh(1, 1)
+        eng = PagedEngine(cfg, unfused, mesh=mesh, cache_dtype=torch.bfloat16,
+                          **par_engine_kw(False))
+        c = par_run_engine(eng, cfg.vocab_size, 0, dev)
+        graphs = graph_stats(eng.graph_cache)
+        captured = eng.graph_cache.captured()
+        del eng
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    per_step = collectives.analytic_decode_bill(cfg, ENGINE_SLOTS, 2)
+    replay_ok = bool(captured) and all(
+        g["all_reduce.launches"] == per_step["all-reduce"]["count"]
+        and g["all_reduce.bytes"] == per_step["all-reduce"]["bytes"]
+        and g["all_gather.launches"] == per_step["all-gather"]["count"]
+        and g["all_gather.bytes"] == per_step["all-gather"]["bytes"] for g in captured)
+    same = c["out_ids"] == eng_single["out_ids"]
+    ok = (same and replay_ok and c["launches"] == eng_single["launches"]
+          and c["steps"] == eng_single["steps"] and graphs["n_captures"] >= 1
+          and np.array_equal(c["prefill_logits"], eng_single["prefill_logits"]))
+    emit(dict(phase="parallel", row="c", what="PagedEngine through ShardedPagedStep, "
+              "world of 1 NCCL rank, graphs", model="llama2-7b", group_size=PAR_GROUP,
+              backend="nccl", world=1, tokens_bit_identical=same,
+              prefill_logits_bit_identical=bool(np.array_equal(
+                  c["prefill_logits"], eng_single["prefill_logits"])),
+              launches=c["launches"], single_launches=eng_single["launches"],
+              decode_steps=c["steps"], prefill_calls=c["prefills"], graphs=graphs,
+              collectives_per_replay=captured, analytic_per_step=per_step,
+              replay_collectives_ok=replay_ok, collectives=c["bill"],
+              tokens_per_s=ENGINE_REQUESTS * ENGINE_NEW / c["wall_s"],
+              single_tokens_per_s=ENGINE_REQUESTS * ENGINE_NEW / eng_single["wall_s"],
+              wall_ms_per_decode_step=(c["wall_s"] - c["prefill_wall_s"]) / c["steps"] * 1e3,
+              single_wall_ms_per_decode_step=(eng_single["wall_s"]
+                                              - eng_single["prefill_wall_s"])
+              / eng_single["steps"] * 1e3,
+              peak_memory_bytes=c["peak_memory_bytes"], ok=ok, card=CARD))
+    if not ok:
+        raise AssertionError("row (c): the world-1 NCCL engine differs from the "
+                             "single-device engine")
+    launches["parallel c nccl world 1"] = c["launches"]
+    del unfused
+
+    with RankPool(PAR_RANKS, backend="gloo", init_method=f"file://{tmp}/gloo",
+                  timeout_s=PAR_TIMEOUT_S, device=str(dev), threads=2) as pool:
+        # (a) the Generator through KuiperModel.init(mesh=)
+        outs = pool.run(par_rank_generator)
+        steps = len(outs[0]["ids"]) - 1
+        T = _bucket(len(prompt))  # the prefill's padded length
+        # two ranks exchange the INT8 kernels' fp32 partials
+        # (models/decoder.py partial_dtype); the prefill gathers the logits
+        # of its last position only
+        per_step = collectives.analytic_decode_bill(cfg, 1, 4)
+        expect = {"all-reduce": dict(count=2 * L * (steps + 1), bytes=per_step[
+            "all-reduce"]["bytes"] * steps + 2 * L * T * cfg.dim * 4),
+            "all-gather": dict(count=steps + 1,
+                               bytes=per_step["all-gather"]["bytes"] * (steps + 1))}
+        agree = par_agreement(cfg, params, [prompt], [single_ids],
+                              [[o["ids"]] for o in outs], dev)
+        # one row: each projection on the kernel its shard's groups pick; the
+        # 32-row prefill's projections on the GEMM, its last position's
+        # lm_head as a decode step's
+        ks = [cfg.dim, cfg.dim // PAR_RANKS, cfg.dim, cfg.hidden_dim // PAR_RANKS]
+        gemv = sum(k // PAR_GROUP <= GEMV_MAX_GROUPS for k in ks)
+        head = int(cfg.dim // PAR_GROUP <= GEMV_MAX_GROUPS)
+        want_l = dict(NO_LAUNCHES, quant_gemv=steps * (gemv * L + head) + head,
+                      quant_gemm=4 * L + 1 - head + steps * ((4 - gemv) * L + 1 - head))
+        logit_err = max(float(np.abs(o["prefill_logits"] - single_logits).max())
+                        for o in outs) / float(np.abs(single_logits).max())
+        exact_same = all(o["exact_ids"] == exact_ids for o in outs)
+        exact_err = max(float(np.abs(o["exact_logits"] - exact_logits).max())
+                        for o in outs) / float(np.abs(exact_logits).max())
+        decode_s = max(o["decode_s"] for o in outs)
+        ok = (agree["tokens_ok"] and all(par_bill_ok(o["bill"], expect) for o in outs)
+              and logit_err <= FUSED_TOL[("full depth", False)]
+              and exact_same and exact_err <= PAR_EXACT_TOL
+              and all(o["launches"] == want_l for o in outs)
+              and len(outs[0]["ids"]) == ENGINE_NEW
+              and not any(o["graphs"] for o in outs))
+        emit(dict(phase="parallel", row="a", what="Generator via KuiperModel.init(mesh=)",
+                  model="llama2-7b", group_size=PAR_GROUP, scales="bf16", backend="gloo",
+                  ranks=PAR_RANKS, device="cuda:0 for every rank", route="layered, eager "
+                  "(gloo collectives cannot be captured)", prompt_len=len(prompt),
+                  new_tokens=len(outs[0]["ids"]), tokens_rank0=outs[0]["ids"],
+                  **agree, prefill_logits_max_rel_err=logit_err,
+                  prefill_logits_limit=FUSED_TOL[("full depth", False)],
+                  exact_run=dict(new_tokens=PAR_EXACT_NEW, activations="fp32",
+                                 cache="fp32", int8_mode="exact",
+                                 tokens_equal_single=exact_same,
+                                 tokens_rank0=outs[0]["exact_ids"],
+                                 logits_max_rel_err=exact_err, limit=PAR_EXACT_TOL),
+                  decode_ms_per_token=decode_s / steps * 1e3,
+                  decode_tokens_per_s=steps / decode_s,
+                  single_decode_ms_per_token=single_decode_s / steps * 1e3,
+                  single_launches=single_launches, launches_expected=want_l,
+                  collectives_expected=expect, **par_rank_fields(outs), ok=ok, card=CARD))
+        if not ok:
+            raise AssertionError("row (a): the tp = 2 Generator failed its checks")
+        for r, o in enumerate(outs):
+            launches[f"parallel a rank {r}"] = o["launches"]
+
+        # (b) the engine at tp = 2
+        outs = pool.run(par_rank_engine, False)
+        b_ok = par_engine_row(cfg, params, "b", outs, eng_single, dev, False)
+        for r, o in enumerate(outs):
+            launches[f"parallel b rank {r}"] = o["launches"]
+        del params
+        torch.cuda.empty_cache()
+
+        # (d) seqpar at sp = 2 on Qwen2.5-0.5B bf16, chunked prefill
+        qcfg, qparams = par_model(dev, True)
+        qparams = fuse_params(qparams)
+        q_single, eng = par_single_engine(qcfg, qparams, True, dev)
+        del eng
+        q_single["exact_ids"], q_single["exact_logits"] = par_exact_engine(
+            qcfg, qparams, dev)
+        outs = pool.run(par_rank_engine, True)
+        d_ok = par_engine_row(qcfg, qparams, "d", outs, q_single, dev, True)
+        for r, o in enumerate(outs):
+            launches[f"parallel d rank {r}"] = o["launches"]
+        del qparams
+    torch.cuda.empty_cache()
+    if not (b_ok and d_ok):
+        raise AssertionError("a parallel engine row failed its checks")
+    return launches
+
+
+def par_engine_row(cfg, params, row, outs, single, dev, seqpar):
+    """Rows (b) and (d): agreement, the collectives of every decode chunk
+    against the per-step bill, launches per rank, times."""
+    import numpy as np
+
+    from kuiperllama_tpu_torch.ops.linear import PREFILL_DEQUANT_ROWS
+    from kuiperllama_tpu_torch.parallel import collectives
+    from kuiperllama_tpu_torch.serving.generate import _bucket
+
+    L, o0 = cfg.n_layers, outs[0]
+    prompts = [r.prompt_ids for r in par_requests(cfg.vocab_size,
+                                                   PAR_SEQPAR_PROMPT if seqpar else 0)]
+    agree = par_agreement(cfg, params, prompts, single["out_ids"],
+                          [o["out_ids"] for o in outs], dev)
+    # the exchanged partials (models/decoder.py partial_dtype): the INT8
+    # kernels' fp32 for Llama-2-7B, bf16 for Qwen's dense weights
+    per_step = collectives.analytic_decode_bill(cfg, ENGINE_SLOTS, 2 if seqpar else 4,
+                                                seqpar_shards=PAR_RANKS if seqpar else 0)
+    chunks_ok = all(par_chunks_ok(o["chunks"], per_step) for o in outs)
+    steps, prefills = o0["steps"], o0["prefills"]
+    if seqpar:  # bf16 weights: no INT8 kernel
+        want_l = dict(NO_LAUNCHES, paged_attention=L * steps)
+    else:  # a prefill of >= PREFILL_DEQUANT_ROWS rows launches only its lm_head
+        rows = ENGINE_SLOTS * _bucket(ENGINE_PROMPT)
+        per_prefill = 1 if rows >= PREFILL_DEQUANT_ROWS else 4 * L + 1
+        want_l = dict(NO_LAUNCHES, paged_attention=L * steps,
+                      quant_gemm=steps * (4 * L + 1) + prefills * per_prefill)
+    logit_err = max(float(np.abs(o["prefill_logits"] - single["prefill_logits"]).max())
+                    for o in outs) / float(np.abs(single["prefill_logits"]).max())
+    generated = sum(len(ids) for ids in o0["out_ids"])
+    same_schedule = all((o["steps"], o["prefills"]) == (single["steps"], single["prefills"])
+                        for o in outs)
+    exact = {}
+    if seqpar:
+        err = max(float(np.abs(o["exact_logits"] - single["exact_logits"]).max())
+                  for o in outs) / float(np.abs(single["exact_logits"]).max())
+        exact = dict(exact_run=dict(
+            requests=PAR_EXACT_REQUESTS, new_tokens=PAR_EXACT_NEW, weights="fp32",
+            pool="fp32", tokens_equal_single=all(o["exact_ids"] == single["exact_ids"]
+                                                 for o in outs),
+            prefill_logits_max_rel_err=err, limit=PAR_EXACT_TOL))
+    ok = (agree["tokens_ok"] and chunks_ok and all(o["launches"] == want_l for o in outs)
+          and logit_err <= FUSED_TOL[("full depth", False)]
+          and (not seqpar or (exact["exact_run"]["tokens_equal_single"]
+                              and exact["exact_run"]["prefill_logits_max_rel_err"]
+                              <= PAR_EXACT_TOL))
+          and all(o["finished"] == ENGINE_REQUESTS for o in outs) and same_schedule
+          and all(o["free_pages"] == single["free_pages"] for o in outs)
+          and not any(o["graphs"] for o in outs))
+    wall = max(o["wall_s"] for o in outs)
+    prefill_wall = max(o["prefill_wall_s"] for o in outs)
+    emit(dict(phase="parallel", row=row,
+              what=("PagedEngine(mesh=, seqpar=True), sp = 2, chunked prefill" if seqpar
+                    else "PagedEngine(mesh=), tp = 2"),
+              model="qwen2.5-0.5b" if seqpar else "llama2-7b",
+              weights="bf16" if seqpar else f"int8 g {PAR_GROUP}, bf16 scales",
+              backend="gloo", ranks=PAR_RANKS, device="cuda:0 for every rank",
+              route="eager (gloo collectives cannot be captured)", slots=ENGINE_SLOTS,
+              max_len=CACHE_LEN, chunk=ENGINE_CHUNK, page_size=ENGINE_PS,
+              prefill_chunk=PAR_PREFILL_CHUNK if seqpar else 0,
+              requests=ENGINE_REQUESTS, prompt_len=ENGINE_PROMPT,
+              long_prompt_every_4th=PAR_SEQPAR_PROMPT if seqpar else None,
+              new_tokens=ENGINE_NEW, generated_tokens=generated, **agree,
+              prefill_logits_max_rel_err=logit_err,
+              prefill_logits_limit=FUSED_TOL[("full depth", False)], **exact,
+              same_schedule=same_schedule,
+              tokens_per_s=generated / wall, wall_s=wall,
+              wall_ms_per_decode_step=(wall - prefill_wall) / steps * 1e3,
+              single_tokens_per_s=generated / single["wall_s"],
+              single_wall_ms_per_decode_step=(single["wall_s"] - single["prefill_wall_s"])
+              / single["steps"] * 1e3,
+              decode_steps=steps, prefill_calls=prefills,
+              free_pages=[o["free_pages"] for o in outs], single_free_pages=single["free_pages"],
+              n_pages=o0["n_pages"], pool_shape_per_rank=o0["pool_shape"],
+              collectives_per_decode_step_expected=per_step,
+              decode_chunks_checked=len(o0["chunks"]), decode_collectives_ok=chunks_ok,
+              single_launches=single["launches"], launches_expected=want_l,
+              **par_rank_fields(outs), ok=ok, card=CARD))
+    return ok
+
+
 def _sum(rows, key):
     return sum(r[key] * n for r, n in rows)
 
@@ -2635,6 +3356,7 @@ def main() -> int:
     launches["ppl"] = phase_ppl(dev)
     launches["hf qwen2.5-0.5b"] = phase_hf(dev)
     launches.update(phase_bench(dev))
+    launches.update(phase_parallel(dev))
     emit(kernels_line(gemv, gemm, fused_rows + [fused_step, qwen_step],
                       fused_step, paged_rows, launches, big_rows, big_step,
                       chunk_rows + [qwen_chunk_step], chunk_step, tool_rows))

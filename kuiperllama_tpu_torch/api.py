@@ -11,7 +11,9 @@ encode / decode / is_sentence_ending / embedding):
     logits = model.forward(ids)        # [T, vocab] fp32
     next_id = model.predict(ids)       # argmax over the last position
 
-Single device: the JAX facade's `mesh` waits for the parallelism slice.
+`init(mesh=...)` runs the Generator tensor-parallel: every rank of the mesh
+(parallel/mesh.py) builds the same KuiperModel, keeps its slices of the
+weights and calls the same methods with the same arguments.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ class KuiperModel:
         self.tokenizer = tokenizer
         self.params = None
         self._generator: Optional[Generator] = None
+        self._forward_fn = None
 
     # ---- construction (reference Model ctor + gen_model_from_file)
 
@@ -79,15 +82,32 @@ class KuiperModel:
     # ---- init (reference Model::init: device select + weight upload)
 
     def init(self, dtype=torch.bfloat16, device="cuda",
-             cache_len: Optional[int] = None):
+             cache_len: Optional[int] = None, mesh=None,
+             cache_dtype=torch.float32):
         """Place the weights on `device` (float weights in `dtype`, norms in
         fp32, INT8 weights as they are), fuse qkv and gate/up as the demo
         does (the Generator's B = 1 megakernel routes need fused weights)
-        and build the dense-cache Generator."""
-        self.params = fuse_params(to_device(self._raw_params, device=device,
-                                            dtype=dtype))
+        and build the dense-cache Generator, its cache in `cache_dtype`
+        (fp32 by default, as the JAX facade's Generator keeps it).
+
+        mesh: a tensor-parallel mesh (parallel/mesh.py, dp = 1): this rank
+        keeps its slices of the weights (shard_params, then per-rank
+        fusion) and the Generator runs ShardedForward, as the JAX facade's
+        init(mesh=) does. The continuous-batching path takes its mesh
+        through serving.engine.PagedEngine(mesh=...)."""
+        params = to_device(self._raw_params, device=device, dtype=dtype)
+        self._forward_fn = None
+        if mesh is not None:
+            from .parallel.sharded import ShardedForward
+            from .parallel.shardings import shard_params
+
+            self._forward_fn = ShardedForward(self.cfg, mesh, params)
+            params = shard_params(params, mesh, self.cfg)
+        params = fuse_params(params)
+        self.params = params
         self._generator = Generator(self.cfg, self.params, self.tokenizer,
-                                    cache_len=cache_len)
+                                    cache_len=cache_len, cache_dtype=cache_dtype,
+                                    forward_fn=self._forward_fn)
         return self
 
     def _ready(self):
@@ -125,10 +145,13 @@ class KuiperModel:
         dev = self.params["tok_emb"].device
         cache = decoder.init_kv_cache(self.cfg, 1, max_len=max(len(ids), 8),
                                       device=dev)
+        fwd = self._forward_fn or decoder.forward
+        if self._forward_fn is not None:
+            cache = self._forward_fn.shard_cache(cache)
         tokens = torch.tensor([ids], dtype=torch.int32, device=dev)
         positions = torch.arange(len(ids), dtype=torch.int32, device=dev)[None]
-        logits, _ = decoder.forward(self.cfg, self.params, tokens, positions,
-                                    cache, rope=self._generator.rope)
+        logits, _ = fwd(self.cfg, self.params, tokens, positions, cache,
+                        rope=self._generator.rope)
         return logits[0]
 
     def predict(self, ids: Sequence[int]) -> int:

@@ -4,6 +4,14 @@ Concatenating along the output dim turns five projections per layer into
 two with identical math; the decoder slices the outputs back apart. Groups
 run along `in`, so concatenating QuantTensors along `out` keeps every group
 intact.
+
+Under tensor parallelism a rank fuses its OWN slices
+(parallel/shardings.shard_params first, then `fuse_params`), the port of
+the JAX `fuse_params_sharded`: column-splitting a global q|k|v would hand
+each rank columns of the wrong heads, while fusing the local slices gives
+the global view [q_0|k_0|v_0 | q_1|k_1|v_1 | ...] that the decoder's
+local-shape splits expect. Under seqpar the attention weights are whole on
+every rank and fuse whole.
 """
 
 from __future__ import annotations

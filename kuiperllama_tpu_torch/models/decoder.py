@@ -27,9 +27,11 @@ import torch
 
 from ..config import ModelConfig
 from ..ops.attention import attention_dense
-from ..ops.linear import linear, linear_layered
+from ..ops.linear import PREFILL_DEQUANT_ROWS, linear, linear_layered
 from ..ops.rmsnorm import rmsnorm
 from ..ops.rope import apply_rope, gather_rope, rope_cache
+from ..parallel.collectives import all_gather, all_reduce, group_size
+from ..quant import QuantTensor
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: Optional[int] = None,
@@ -76,10 +78,38 @@ def _qkv(cfg, blocks, li, x, s, c, B, T, mode="fast"):
     return q, k, v.reshape(B, T, KH, hd), H, KH
 
 
-def _mlp_residual(cfg, blocks, li, x, attn_out, B, T, H, hd, mode="fast"):
-    """Attention output projection and SwiGLU MLP with residuals."""
-    x = x + linear_layered(attn_out.reshape(B, T, H * hd), blocks["wo"], li,
-                           mode=mode)
+def partial_dtype(w, rows: int, act_dtype, group):
+    """The dtype a row-parallel product of `rows` rows against `w` crosses
+    `group` in. Where the INT8 kernels run (fewer than PREFILL_DEQUANT_ROWS
+    rows), an fp32 x costs nothing: the kernel reads it as it reads bf16
+    and returns its fp32 accumulation unrounded, so two or more ranks
+    exchange fp32 partials and round to the activation dtype once, after
+    the sum. Every other product (dense weights, the dequantized prefill
+    matmul) is summed in the activation dtype, as the JAX package's psum
+    sums it."""
+    if (group_size(group) > 1 and isinstance(w, QuantTensor)
+            and rows < PREFILL_DEQUANT_ROWS):
+        return torch.float32
+    return act_dtype
+
+
+def _row_parallel(h, w, li, mode, group):
+    """h @ layer li of a row-parallel weight, summed over `group` in
+    `partial_dtype`'s dtype, in place on the fresh product."""
+    dt = partial_dtype(w, h.numel() // h.shape[-1], h.dtype, group)
+    return all_reduce(linear_layered(h.to(dt), w, li, mode=mode), group).to(h.dtype)
+
+
+def _mlp_residual(cfg, blocks, li, x, attn_out, B, T, H, hd, mode="fast",
+                  group=None, wo_reduce=True):
+    """Attention output projection and SwiGLU MLP with residuals. Under
+    tensor parallelism (`group`, the model axis's process group) wo and w2
+    are row-parallel: their outputs are summed over the group before each
+    residual add (`_row_parallel`). Sequence parallelism replicates wo
+    (wo_reduce=False): only w2's sum remains."""
+    a = attn_out.reshape(B, T, H * hd)
+    x = x + (_row_parallel(a, blocks["wo"], li, mode, group) if wo_reduce
+             else linear_layered(a, blocks["wo"], li, mode=mode))
     h = rmsnorm(x, blocks["ffn_norm"][li], cfg.norm_eps)
     if "w13" in blocks:  # fused gate|up projection (fuse.py)
         hidden = blocks["w2"].shape[-2]
@@ -90,12 +120,12 @@ def _mlp_residual(cfg, blocks, li, x, attn_out, B, T, H, hd, mode="fast"):
         up = linear_layered(h, blocks["w3"], li, mode=mode)
     gf = gate.float()
     act = (gf * torch.sigmoid(gf)).to(x.dtype) * up
-    return x + linear_layered(act, blocks["w2"], li, mode=mode)
+    return x + _row_parallel(act, blocks["w2"], li, mode, group)
 
 
 def forward(cfg: ModelConfig, params, tokens, positions, kv_cache,
             kv_len_mask=None, last_pos=None, *, rope=None, mode: str = "fast",
-            drop_past_end: bool = True):
+            drop_past_end: bool = True, group=None):
     """Forward over [B, T] tokens.
 
     tokens:    int [B, T]
@@ -108,6 +138,9 @@ def forward(cfg: ModelConfig, params, tokens, positions, kv_cache,
                per row (prefill wants the final real token's logits).
     rope:      optional (sin, cos) from `build_rope`, to skip rebuilding it.
     mode:      "fast" | "exact" rounding of the INT8 matmul kernels.
+    group:     the model axis's process group when params and cache are one
+               rank's tensor-parallel slices (parallel/sharded.py): wo and w2
+               are summed over it and the vocab-split logits gathered.
 
     Returns (logits fp32 [B, T_or_1, vocab], kv_cache).
     """
@@ -144,21 +177,23 @@ def forward(cfg: ModelConfig, params, tokens, positions, kv_cache,
             k_cache[rows, slots] = k[rows, toks].to(k_cache.dtype)
             v_cache[rows, slots] = v[rows, toks].to(v_cache.dtype)
         attn = attention_dense(q, k_cache, v_cache, positions, kv_len_mask)
-        x = _mlp_residual(cfg, blocks, li, x, attn, B, T, H, hd, mode)
+        x = _mlp_residual(cfg, blocks, li, x, attn, B, T, H, hd, mode, group)
 
     if last_pos is not None:
         x = x[torch.arange(B, device=x.device),
               last_pos.long().clamp(0, T - 1)][:, None]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = linear(x, params["lm_head"], mode=mode).float()
-    return logits, kv_cache
+    return all_gather(logits, group), kv_cache
 
 
 def prefill(cfg: ModelConfig, params, tokens, kv_cache, prompt_lens=None, *,
-            rope=None, mode: str = "fast"):
+            rope=None, mode: str = "fast", forward_fn=None):
     """Batched prefill of [B, T] prompts starting at position 0.
 
     prompt_lens: optional int [B] actual lengths (tokens beyond are padding).
+    forward_fn: a callable with `forward`'s signature that runs in its place
+      (parallel/sharded.py ShardedForward).
     Returns (last_logits [B, vocab], kv_cache): logits at each row's final
     real token.
     """
@@ -171,18 +206,20 @@ def prefill(cfg: ModelConfig, params, tokens, kv_cache, prompt_lens=None, *,
         prompt_lens = torch.full((B,), T, dtype=torch.int32, device=dev)
     slot = torch.arange(S, dtype=torch.int32, device=dev)
     kv_len_mask = slot[None, :] < prompt_lens[:, None]
-    logits, kv_cache = forward(cfg, params, tokens, positions, kv_cache,
-                               kv_len_mask, last_pos=prompt_lens - 1,
-                               rope=rope, mode=mode, drop_past_end=False)
+    logits, kv_cache = (forward_fn or forward)(
+        cfg, params, tokens, positions, kv_cache, kv_len_mask,
+        last_pos=prompt_lens - 1, rope=rope, mode=mode, drop_past_end=False)
     return logits[:, 0], kv_cache
 
 
 def decode_step(cfg: ModelConfig, params, token, pos, kv_cache,
                 kv_len_mask=None, *, rope=None, mode: str = "fast",
-                drop_past_end: bool = True):
+                drop_past_end: bool = True, forward_fn=None):
     """One batched decode step. token: int [B], pos: int [B] (a position
-    >= S drops its cache write, see `forward`)."""
-    logits, kv_cache = forward(cfg, params, token[:, None], pos[:, None],
-                               kv_cache, kv_len_mask, rope=rope, mode=mode,
-                               drop_past_end=drop_past_end)
+    >= S drops its cache write, see `forward`). forward_fn: as in
+    `prefill`."""
+    fwd = forward_fn or forward
+    logits, kv_cache = fwd(cfg, params, token[:, None], pos[:, None],
+                           kv_cache, kv_len_mask, rope=rope, mode=mode,
+                           drop_past_end=drop_past_end)
     return logits[:, 0], kv_cache

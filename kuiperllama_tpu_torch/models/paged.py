@@ -19,6 +19,17 @@ pages (the 2**30 padding sentinel) are redirected to the garbage page 0.
 The scheduler (serving/engine.py) owns the page tables and pre-extends each
 row's pages to cover a whole decode chunk; slots not yet written are masked
 by seq_lens inside the kernel.
+
+Parallel hooks, as the JAX bodies take `tp_axis` (parallel/sharded_paged.py,
+parallel/seqpar.py): `group` is the model axis's process group. Tensor
+parallelism: weights are this rank's Megatron slices and the pools its
+block of kv-head lanes; wo and w2 are summed over the group and the
+vocab-split logits gathered; page tables and work lists stay global.
+seqpar=True: the pools are this rank's block of pages (global page g lives
+on rank g // P_local as local page g % P_local; a write to a page it does
+not own goes to its local garbage page 0), the attention weights are whole,
+each rank's flash statistics cover only its pages and are gathered and
+merged exactly, and only w2 is summed.
 """
 
 from __future__ import annotations
@@ -28,12 +39,13 @@ import torch
 
 from ..config import ModelConfig
 from ..kvcache import sink_pages
-from ..ops.attention import attention_dense
-from ..ops.kernels.paged_attention import paged_attention_flat
+from ..ops.attention import attention_dense, attention_dense_parts
+from ..ops.kernels.paged_attention import merge_flash_many, paged_attention_flat
 from ..ops.linear import linear
 from ..ops.rmsnorm import rmsnorm
 from ..ops.rope import gather_rope
 from ..ops.sampling import DecodeState
+from ..parallel.collectives import all_gather, group_rank
 from ..serving.graphs import run_steps
 from .decoder import _mlp_residual, _qkv, build_rope
 
@@ -61,15 +73,45 @@ def _write_chunk_pages(li, kp_all, vp_all, k2, v2, chunk_pages, ps):
         vp_all[li][page, offs] = v2[:, n_full * ps: n_full * ps + tail]
 
 
-def _final_logits(cfg, params, x_last, mode):
+def _final_logits(cfg, params, x_last, mode, group=None):
     x_last = rmsnorm(x_last, params["final_norm"], cfg.norm_eps)
-    return linear(x_last, params["lm_head"], mode=mode).float()
+    return all_gather(linear(x_last, params["lm_head"], mode=mode).float(), group)
+
+
+def _owned(pages: torch.Tensor, n_local: int, shard: int) -> torch.Tensor:
+    """Seqpar: local ids of the global pages this rank owns, the garbage
+    page 0 for every other (the 2**30 sentinel included)."""
+    return torch.where(pages // n_local == shard, pages % n_local,
+                       torch.zeros_like(pages))
+
+
+def merge_shards(group, acc, m, l, covered=None, extra=None):
+    """Seqpar's exact merge of every rank's flash partials (acc [..., hd],
+    m, l): rows this rank does not cover (`covered` [B, 1] bool, None for
+    all) are first set to the flash identity, then the group's (acc, m, l),
+    packed as one [..., hd + 2] fp32 tensor, are gathered, `extra` (a
+    replicated partial) is stacked after them, and the normalised output is
+    returned."""
+    if covered is not None:
+        dev = acc.device
+        acc = torch.where(covered[..., None], acc, torch.zeros((), device=dev))
+        m = torch.where(covered, m, torch.full((), -1e30, device=dev))
+        l = torch.where(covered, l, torch.zeros((), device=dev))
+    hd = acc.shape[-1]
+    parts = all_gather(torch.cat([acc, m[..., None], l[..., None]], dim=-1)[None],
+                       group, dim=0)
+    pa, pm, pl = parts[..., :hd], parts[..., hd], parts[..., hd + 1]
+    if extra is not None:
+        pa = torch.cat([pa, extra[0][None]])
+        pm = torch.cat([pm, extra[1][None]])
+        pl = torch.cat([pl, extra[2][None]])
+    return merge_flash_many(pa, pm, pl, axis=0)
 
 
 @torch.no_grad()
 def prefill_paged(cfg: ModelConfig, params, tokens, prompt_lens, k_pages,
                   v_pages, token_pages, token_offs=None, *, rope=None,
-                  mode: str = "fast"):
+                  mode: str = "fast", group=None, seqpar: bool = False):
     """Batched prefill of admitted prompts from position 0.
 
     tokens [B, T]; prompt_lens [B]; token_pages [B, T] maps each prompt
@@ -89,7 +131,9 @@ def prefill_paged(cfg: ModelConfig, params, tokens, prompt_lens, k_pages,
     s, c = gather_rope(sin, cos, positions)
     kv_mask = (torch.arange(T, device=dev)[None] < prompt_lens[:, None])
     ps, P = k_pages.shape[2], k_pages.shape[1]
-    chunk_pages = sink_pages(token_pages[:, ::ps].long(), P)
+    chunk_pages = token_pages[:, ::ps].long()
+    chunk_pages = (_owned(chunk_pages, P, group_rank(group)) if seqpar
+                   else sink_pages(chunk_pages, P))
     blocks = params["blocks"]
     for li in range(cfg.n_layers):
         q, k, v, H, KH = _qkv(cfg, blocks, li, x, s, c, B, T, mode)
@@ -98,16 +142,18 @@ def prefill_paged(cfg: ModelConfig, params, tokens, prompt_lens, k_pages,
                            k.reshape(B, T, KH * hd).to(k_pages.dtype),
                            v.reshape(B, T, KH * hd).to(v_pages.dtype),
                            chunk_pages, ps)
-        x = _mlp_residual(cfg, blocks, li, x, attn, B, T, H, hd, mode)
+        x = _mlp_residual(cfg, blocks, li, x, attn, B, T, H, hd, mode, group,
+                          wo_reduce=not seqpar)
     last = (prompt_lens.long() - 1).clamp(0, T - 1)
     x_last = x[torch.arange(B, device=dev), last]
-    return _final_logits(cfg, params, x_last, mode), k_pages, v_pages
+    return _final_logits(cfg, params, x_last, mode, group), k_pages, v_pages
 
 
 @torch.no_grad()
 def prefill_chunk_paged(cfg: ModelConfig, params, tokens_chunk, chunk_start,
                         row_lens, k_pages, v_pages, chunk_pages, hist_pages, *,
-                        rope=None, mode: str = "fast"):
+                        rope=None, mode: str = "fast", group=None,
+                        seqpar: bool = False):
     """One C-token chunk of a chunked prefill (C a multiple of the page size).
 
     tokens_chunk [B, C]; chunk_start: int, absolute position of chunk token 0
@@ -137,8 +183,16 @@ def prefill_chunk_paged(cfg: ModelConfig, params, tokens_chunk, chunk_start,
     sin, cos = rope if rope is not None else build_rope(cfg, dev)
     abs_pos = chunk_start + torch.arange(C, device=dev)
     s, c = gather_rope(sin, cos, abs_pos.expand(B, C))
-    cp = sink_pages(chunk_pages.long(), P)
-    hp = sink_pages(hist_pages.long(), P)
+    if seqpar:
+        # each rank writes and scores only the pages it owns; the history
+        # pages it does not own read its garbage page and are masked
+        shard = group_rank(group)
+        cp = _owned(chunk_pages.long(), P, shard)
+        hist_owned = (hist_pages.long() // P == shard) & (hist_pages >= 0)
+        hp = _owned(hist_pages.long(), P, shard)
+    else:
+        cp = sink_pages(chunk_pages.long(), P)
+        hp = sink_pages(hist_pages.long(), P)
 
     # attention layout [history (S_hist) | chunk (C)]: history slots precede
     # every chunk query, so the causal rule on layout positions is right
@@ -157,15 +211,26 @@ def prefill_chunk_paged(cfg: ModelConfig, params, tokens_chunk, chunk_start,
         if S_hist:
             k_hist = k_pages[li][hp].reshape(B, S_hist, KH, hd).to(k.dtype)
             v_hist = v_pages[li][hp].reshape(B, S_hist, KH, hd).to(v.dtype)
-            attn = attention_dense(q, torch.cat([k_hist, k], dim=1),
-                                   torch.cat([v_hist, v], dim=1),
-                                   q_layout_pos, kv_mask)
+            if seqpar:
+                # this rank's history partials, gathered, merged exactly with
+                # the chunk's causal part (computed alike on every rank)
+                own = hist_owned.repeat_interleave(ps, dim=1)
+                hist = attention_dense_parts(q, k_hist, v_hist, q_layout_pos,
+                                             hist_valid & own)
+                rel = torch.arange(C, device=dev).expand(B, C)
+                chunk = attention_dense_parts(q, k, v, rel, chunk_valid)
+                attn = merge_shards(group, *hist, extra=chunk).to(q.dtype)
+            else:
+                attn = attention_dense(q, torch.cat([k_hist, k], dim=1),
+                                       torch.cat([v_hist, v], dim=1),
+                                       q_layout_pos, kv_mask)
         else:
             attn = attention_dense(q, k, v, q_layout_pos, kv_mask)
-        x = _mlp_residual(cfg, blocks, li, x, attn, B, C, H, hd, mode)
+        x = _mlp_residual(cfg, blocks, li, x, attn, B, C, H, hd, mode, group,
+                          wo_reduce=not seqpar)
     last_rel = (row_lens - 1 - chunk_start).clamp(0, C - 1)
     x_last = x[torch.arange(B, device=dev), last_rel]
-    logits = _final_logits(cfg, params, x_last, mode)
+    logits = _final_logits(cfg, params, x_last, mode, group)
     ends_here = (row_lens - 1 >= chunk_start) & (row_lens - 1 < chunk_start + C)
     return logits, ends_here, k_pages, v_pages
 
@@ -173,13 +238,17 @@ def prefill_chunk_paged(cfg: ModelConfig, params, tokens_chunk, chunk_start,
 def decode_step_paged(cfg: ModelConfig, params, state: DecodeState, k_pages,
                       v_pages, meta, generator=None, page_size: int = 128,
                       temperature: float = 0.0, top_k: int = 0,
-                      top_p: float = 1.0, *, rope=None, mode: str = "fast"):
+                      top_p: float = 1.0, *, rope=None, mode: str = "fast",
+                      group=None, seqpar: bool = False):
     """One decode step of the whole batch over the paged cache, IN PLACE:
     each row's new K/V rows land in its page, the paged flash-decode kernel
     runs once per layer, and `state` (token, pos, done, the chunk's token
     block) advances. meta = (page_table [B, max_pages], flat_b, flat_page,
-    flat_tok0, n_items): int32 device tensors, read, never written."""
-    page_table_dev, flat_b, flat_page, flat_tok0, n_items = meta
+    flat_tok0, n_items): int32 device tensors, read, never written. With
+    seqpar, the work list is this rank's (local page ids,
+    parallel/seqpar.build_work_lists_sharded) and meta ends with covered
+    [B] int32, the rows it touches."""
+    page_table_dev, flat_b, flat_page, flat_tok0, n_items = meta[:5]
     token, pos = state.token, state.pos
     B = token.shape[0]
     hd = cfg.head_dim
@@ -193,8 +262,12 @@ def decode_step_paged(cfg: ModelConfig, params, state: DecodeState, k_pages,
     s, c = gather_rope(sin, cos, pos[:, None])
     seq_lens = (pos + 1).to(torch.int32)
     pos_l = pos.long()
-    write_page = sink_pages(pt[b_idx, (pos_l // page_size).clamp(max=max_pages - 1)],
-                            k_pages.shape[1])
+    write_page = pt[b_idx, (pos_l // page_size).clamp(max=max_pages - 1)]
+    if seqpar:
+        write_page = _owned(write_page, k_pages.shape[1], group_rank(group))
+        covered = meta[5].bool()[:, None]
+    else:
+        write_page = sink_pages(write_page, k_pages.shape[1])
     write_off = pos_l % page_size
     for li in range(cfg.n_layers):
         q, k, v, H, KH = _qkv(cfg, blocks, li, x, s, c, B, 1, mode)
@@ -205,9 +278,13 @@ def decode_step_paged(cfg: ModelConfig, params, state: DecodeState, k_pages,
         acc, m, l = paged_attention_flat(
             q[:, 0].contiguous(), k_pages, v_pages, flat_b, flat_page,
             flat_tok0, n_items, seq_lens, page_size=page_size, layer_idx=li)
-        attn = (acc / torch.clamp(l[..., None], min=1e-30)).to(x.dtype)
-        x = _mlp_residual(cfg, blocks, li, x, attn[:, None], B, 1, H, hd, mode)
-    logits = _final_logits(cfg, params, x[:, 0], mode)
+        if seqpar:  # rows this rank's list does not touch: the identity
+            attn = merge_shards(group, acc, m, l, covered).to(x.dtype)
+        else:
+            attn = (acc / torch.clamp(l[..., None], min=1e-30)).to(x.dtype)
+        x = _mlp_residual(cfg, blocks, li, x, attn[:, None], B, 1, H, hd, mode,
+                          group, wo_reduce=not seqpar)
+    logits = _final_logits(cfg, params, x[:, 0], mode, group)
     state.emit(logits, generator, temperature, top_k, top_p)
 
 
@@ -215,21 +292,22 @@ def decode_step_paged(cfg: ModelConfig, params, state: DecodeState, k_pages,
 def run_chunk_paged(cfg: ModelConfig, params, state: DecodeState, k_pages,
                     v_pages, generator, meta, steps: int, page_size: int = 128,
                     temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-                    *, rope=None, mode: str = "fast", graphs=None):
+                    *, rope=None, mode: str = "fast", graphs=None, group=None,
+                    seqpar: bool = False, mesh_key=None):
     """`steps` calls of `decode_step_paged` on `state`, eagerly or through
     `graphs` (serving/graphs.py), keyed as the JAX package keys its jitted
     chunk: (B, max_pages, sampling, mode), with the pools' dtype and the
-    page size. Returns the chunk's tokens [B, steps] (a view of
-    state.toks)."""
+    page size, and `mesh_key` (parallel/mesh.py Mesh.key) with group.
+    Returns the chunk's tokens [B, steps] (a view of state.toks)."""
     B, max_pages = meta[0].shape
 
     def step():
         decode_step_paged(cfg, params, state, k_pages, v_pages, meta, generator,
                           page_size, temperature, top_k, top_p, rope=rope,
-                          mode=mode)
+                          mode=mode, group=group, seqpar=seqpar)
 
     key = ("paged", B, max_pages, k_pages.dtype, page_size, temperature, top_k,
-           top_p, mode)
+           top_p, mode, seqpar, mesh_key)
     return run_steps(state, step, steps, graphs, key,
                      (k_pages, v_pages, *meta, *(rope or ())), rng=temperature > 0)
 
@@ -240,7 +318,8 @@ def decode_chunk_paged(cfg: ModelConfig, params, token, pos, k_pages, v_pages,
                        flat_page, flat_tok0, n_items, steps: int,
                        page_size: int = 128, temperature: float = 0.0,
                        top_k: int = 0, top_p: float = 1.0, *, rope=None,
-                       mode: str = "fast"):
+                       mode: str = "fast", group=None, seqpar: bool = False,
+                       covered=None):
     """Run `steps` decode iterations over the paged cache.
 
     token/pos/done: [B] current state on the device (not written: the steps
@@ -251,32 +330,43 @@ def decode_chunk_paged(cfg: ModelConfig, params, token, pos, k_pages, v_pages,
     to pos + steps (the scheduler pre-extends them); unwritten slots are
     masked by seq_lens = pos + 1. Finished rows (done) keep their token and
     position. `generator` is the torch.Generator of the sampling draws.
+    group, seqpar: as in `decode_step_paged`; with seqpar, `covered` [B]
+    marks the rows this rank's work list touches.
 
     Returns (tokens int32 [B, steps], token, pos, k_pages, v_pages, done)."""
     state = DecodeState(token.clone(), pos.clone(), done.clone(), stop_ids, steps)
+    meta = (page_table_dev, flat_b, flat_page, flat_tok0, n_items)
+    if seqpar:
+        meta += (covered.to(torch.int32),)
     toks = run_chunk_paged(
-        cfg, params, state, k_pages, v_pages, generator,
-        (page_table_dev, flat_b, flat_page, flat_tok0, n_items), steps,
-        page_size, temperature, top_k, top_p, rope=rope, mode=mode)
+        cfg, params, state, k_pages, v_pages, generator, meta, steps,
+        page_size, temperature, top_k, top_p, rope=rope, mode=mode, group=group,
+        seqpar=seqpar)
     return toks, state.token, state.pos, k_pages, v_pages, state.done
 
 
-def pack_chunk_meta(pt, fb, fp, ft, ni) -> np.ndarray:
-    """The per-chunk scheduler arrays (page table and flat work list) packed
-    into ONE int32 vector, so a decode chunk costs one host-to-device copy."""
+def pack_chunk_meta(pt, fb, fp, ft, ni, covered=None) -> np.ndarray:
+    """The per-chunk scheduler arrays (page table and flat work list, and
+    seqpar's covered rows) packed into ONE int32 vector, so a decode chunk
+    costs one host-to-device copy."""
+    extra = [] if covered is None else [np.asarray(covered, np.int32).ravel()]
     return np.concatenate([
         np.asarray(pt, np.int32).ravel(), np.asarray(fb, np.int32),
         np.asarray(fp, np.int32), np.asarray(ft, np.int32),
-        np.asarray([int(np.asarray(ni).reshape(-1)[0])], np.int32)])
+        np.asarray([int(np.asarray(ni).reshape(-1)[0])], np.int32), *extra])
 
 
-def unpack_chunk_meta(packed, shapes):
+def unpack_chunk_meta(packed, shapes, covered: bool = False):
     """The (page_table [B, max_pages], flat_b, flat_page, flat_tok0,
-    n_items) views of a packed vector; shapes = (B, max_pages, M)."""
+    n_items[, covered [B]]) views of a packed vector; shapes = (B,
+    max_pages, M)."""
     B, MP, M = shapes
     o = B * MP
-    return (packed[:o].view(B, MP), packed[o: o + M], packed[o + M: o + 2 * M],
+    meta = (packed[:o].view(B, MP), packed[o: o + M], packed[o + M: o + 2 * M],
             packed[o + 2 * M: o + 3 * M], packed[o + 3 * M: o + 3 * M + 1])
+    if covered:
+        meta += (packed[o + 3 * M + 1: o + 3 * M + 1 + B],)
+    return meta
 
 
 def decode_chunk_paged_packed(cfg: ModelConfig, params, token, pos, k_pages,

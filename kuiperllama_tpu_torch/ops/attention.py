@@ -77,3 +77,30 @@ def _attention_full(q, k_cache, v_cache, q_positions, kv_len_mask=None):
 
     out = torch.einsum("btkms,bskh->btkmh", probs, vf)
     return out.reshape(B, T, H, hd).to(q.dtype)
+
+
+def attention_dense_parts(q, k_cache, v_cache, q_positions, kv_len_mask=None):
+    """attention_dense, returning the UNNORMALISED flash partials instead of
+    the softmax output (a port of the JAX `attention_dense_parts`):
+    acc [B, T, H, hd], m [B, T, H], l [B, T, H], all fp32. A rank scores
+    its own slice of the keys and the partials merge exactly
+    (ops/kernels/paged_attention.merge_flash_many): sequence-parallel
+    chunked prefill. A row whose mask is empty gives the flash identity
+    (acc 0, m NEG_INF, l 0) and vanishes in the merge."""
+    B, T, H, hd = q.shape
+    S, KH = k_cache.shape[1], k_cache.shape[2]
+    kv_mul = H // KH
+    qf = q.reshape(B, T, KH, kv_mul, hd).float()
+    scores = torch.einsum("btkmh,bskh->btkms", qf, k_cache.float()) * (1.0 / math.sqrt(hd))
+    slot = torch.arange(S, device=q.device)
+    mask = slot[None, None, :] <= q_positions[:, :, None]
+    if kv_len_mask is not None:
+        mask = mask & kv_len_mask[:, None, :]
+    mask5 = mask[:, :, None, None, :]
+    scores = scores.masked_fill(~mask5, NEG_INF)
+    m = scores.amax(dim=-1)
+    # exp(NEG_INF - NEG_INF) = 1 on an empty row: zero it explicitly
+    p = torch.where(mask5, torch.exp(scores - m[..., None]), torch.zeros((), device=q.device))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("btkms,bskh->btkmh", p, v_cache.float())
+    return acc.reshape(B, T, H, hd), m.reshape(B, T, H), l.reshape(B, T, H)

@@ -24,10 +24,20 @@ def to_device(params, device="cuda", dtype=torch.float32):
 
     Float weights are cast to `dtype` (bf16 for the fast path); norm weights
     stay fp32 for accumulation accuracy; quant dict leaves become QuantTensor
-    (int8 q, fp32 s with exactly in // g rows).
+    (int8 q, fp32 s with exactly in // g rows). Leaves that are already
+    tensors or QuantTensors (such as `random_params_device`'s) move and cast
+    by the same rules; QuantTensor scales keep their dtype.
     """
 
     def convert(name, x):
+        if isinstance(x, QuantTensor):
+            return QuantTensor(q=x.q.to(device), s=x.s.to(device),
+                               group_size=x.group_size)
+        if torch.is_tensor(x):
+            if x.is_floating_point():
+                return x.to(device=device,
+                            dtype=torch.float32 if "norm" in name else dtype)
+            return x.to(device)
         if is_quant_leaf(x):
             return QuantTensor(
                 q=torch.from_numpy(np.ascontiguousarray(x["q"])).to(device),

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine, a port of
-kuiperllama_tpu/serving/engine.py (single device).
+kuiperllama_tpu/serving/engine.py.
 
 The engine keeps a slot-per-request batch over a persistent KV cache:
 requests are admitted into free slots, all active slots decode together in
@@ -11,7 +11,9 @@ Two cache backends:
   Engine      dense cache [L, max_batch, max_len, KH, hd];
   PagedEngine paged pool and the paged flash-decode kernel (memory scales
               with real tokens), with chunked admission, decode-growth
-              reservation and preemption under pool pressure.
+              reservation and preemption under pool pressure; with mesh=,
+              tensor- or sequence-parallel over the ranks of a mesh
+              (parallel/sharded_paged.py, parallel/seqpar.py).
 
 Host/device split: the device owns tokens, positions, done flags and the KV
 cache (written in place across chunks); the host owns the request queue and
@@ -133,7 +135,7 @@ class Engine:
             raise ValueError(f"graphs=True needs the params on a CUDA device, "
                              f"not {dev}")
         if graphs is None:
-            graphs = dev.type == "cuda" and kernels_on()
+            graphs = self.graphs_default()
         self.graph_cache = GraphCache(dev, self.generator) if graphs else None
 
         self.queue: List[Request] = []
@@ -159,6 +161,10 @@ class Engine:
         # in ONE fetch (_meta/_collect), and pos at admission is host-known
         self._pos_np = np.zeros((max_batch,), np.int64)
         self._init_cache()
+
+    def graphs_default(self) -> bool:
+        """graphs=None: on for params on a CUDA device with the kernels on."""
+        return self.device.type == "cuda" and kernels_on()
 
     # ---- cache backend hooks (overridden by PagedEngine)
 
@@ -428,8 +434,18 @@ class PagedEngine(Engine):
     remaining growth; with False only prompt pages are budgeted and a
     decode chunk that runs out of pages preempts the youngest slot.
 
-    mesh= and seqpar= (tensor- and sequence-parallel serving) belong to the
-    parallelism slice, which the port does not have yet."""
+    mesh= (parallel/mesh.py, dp = 1) runs the engine tensor-parallel: every
+    rank of the mesh builds the same engine from the same full, unfused
+    params, keeps its slices (fused per rank) and its
+    block of kv-head lanes of the pools (parallel/sharded_paged.py), and is
+    given the same requests; the scheduler runs alike on every rank. With
+    seqpar=True the pools split over pages instead (parallel/seqpar.py):
+    n_pages grows by one garbage page per rank (global page s * P_local is
+    rank s's local page 0, reserved) and up to a multiple of sp, and the
+    pages added by the rounding are reserved too, so the free pages at
+    start equal the single-device engine's. Decode graphs are taken only
+    where the group's collectives can be captured (NCCL); graphs=True over
+    a gloo group raises."""
 
     def __init__(self, cfg: ModelConfig, params, tokenizer=None,
                  n_pages: Optional[int] = None, page_size: int = 128,
@@ -437,10 +453,14 @@ class PagedEngine(Engine):
                  reserve_growth: bool = True, seqpar: bool = False, **kw):
         from ..kvcache import PageAllocator
 
-        if mesh is not None or seqpar:
-            raise NotImplementedError(
-                "PagedEngine: mesh= and seqpar= need the parallelism slice of "
-                "the port (ROADMAP queue 1 item 10), which is not ported yet")
+        if seqpar and mesh is None:
+            raise ValueError("PagedEngine: seqpar=True needs a mesh")
+        if mesh is not None and mesh.dp != 1:
+            raise ValueError(f"PagedEngine: a mesh over dp={mesh.dp} data ranks; "
+                             "each data rank runs its own engine on a tp-only mesh")
+        if mesh is not None and kw.get("graphs") and not mesh.graphs_capturable():
+            raise ValueError(f"graphs=True: the {mesh.backend} group's collectives "
+                             "cannot be captured in a CUDA graph")
         if prefill_chunk % page_size:
             raise ValueError(f"prefill_chunk {prefill_chunk} is not a multiple "
                              f"of the page size {page_size}")
@@ -454,16 +474,53 @@ class PagedEngine(Engine):
         max_len = kw.get("max_len") or cfg.seq_len
         if n_pages is None:
             n_pages = max_batch * (-(-max_len // page_size)) + 1
+        self.mesh, self.seqpar, self._sharded = mesh, seqpar, None
+        reserved = ()
+        if mesh is not None:
+            params = self._shard(cfg, params, mesh, seqpar)
+            if seqpar:
+                # the single-device pool's free pages, plus one garbage page
+                # per rank, rounded up to a multiple of sp; the pages the
+                # rounding adds stay out of the free list as well
+                sp = mesh.tp
+                demand = n_pages - 1
+                n_pages = -(-(demand + sp) // sp) * sp
+                p_local = n_pages // sp
+                sinks = {s * p_local for s in range(sp)}
+                extra = n_pages - sp - demand
+                spare = [p for p in range(n_pages - 1, 0, -1) if p not in sinks][:extra]
+                reserved = tuple(sorted(sinks | set(spare)))
         self._n_pages = n_pages
         self._packed = None  # the decode chunk's metadata (pack_chunk_meta)
         super().__init__(cfg, params, tokenizer, **kw)
         self.allocator = PageAllocator(
             n_pages=n_pages, page_size=page_size, max_seqs=self.max_batch,
-            max_len=self.max_len)
+            max_len=self.max_len, reserved=reserved)
         self._pool_pages = self.allocator.n_free_pages
         # requests cancelled while their admission wave prefills; they give
         # up their slots when the wave activates
         self._cancel_after_wave: set = set()
+
+    def _shard(self, cfg, params, mesh, seqpar):
+        """This rank's params, fused per rank, and its step
+        (ShardedPagedStep or SeqParPagedStep)."""
+        from ..fuse import fuse_params
+        from ..parallel.shardings import shard_params
+
+        params = fuse_params(shard_params(params, mesh, cfg, seqpar=seqpar))
+        if seqpar:
+            from ..parallel.seqpar import SeqParPagedStep
+
+            self._sharded = SeqParPagedStep(cfg, mesh, params)
+        else:
+            from ..parallel.sharded_paged import ShardedPagedStep
+
+            self._sharded = ShardedPagedStep(cfg, mesh, params)
+        return params
+
+    def graphs_default(self) -> bool:
+        return super().graphs_default() and (
+            self.mesh is None or self.mesh.graphs_capturable())
 
     # ---- chunked admission (prefill/decode overlap)
 
@@ -533,7 +590,8 @@ class PagedEngine(Engine):
             valid = chunk_pos < w["lens"][i]
             cp[i, valid] = pt[slot, (chunk_pos // ps)[valid]]
             hp[i, :n_need] = pt[slot, :n_need]
-        logits, ends, self.k_pages, self.v_pages = prefill_chunk_paged(
+        fn = prefill_chunk_paged if self._sharded is None else self._sharded.prefill_chunk
+        logits, ends, self.k_pages, self.v_pages = fn(
             self.cfg, self.params, self._to_dev(w["toks"][:, start:start + C]),
             start, self._to_dev(w["lens"]), self.k_pages, self.v_pages,
             self._to_dev(cp), self._to_dev(hp), rope=self.rope)
@@ -555,6 +613,10 @@ class PagedEngine(Engine):
     def _init_cache(self):
         from ..kvcache import init_paged_cache
 
+        if self._sharded is not None:
+            self.k_pages, self.v_pages = self._sharded.init_pages(
+                self._n_pages, self.page_size, self.cache_dtype, self.device)
+            return
         cache = init_paged_cache(self.cfg, n_pages=self._n_pages,
                                  page_size=self.page_size,
                                  dtype=self.cache_dtype, device=self.device)
@@ -629,7 +691,8 @@ class PagedEngine(Engine):
                 continue
             n = int(lens[i])
             token_pages[i, :n] = self.allocator.page_table[slots[i], arange_t[:n] // ps]
-        last, self.k_pages, self.v_pages = prefill_paged(
+        fn = prefill_paged if self._sharded is None else self._sharded.prefill
+        last, self.k_pages, self.v_pages = fn(
             self.cfg, self.params, self._to_dev(toks), self._to_dev(lens),
             self.k_pages, self.v_pages, self._to_dev(token_pages),
             rope=self.rope)
@@ -682,11 +745,20 @@ class PagedEngine(Engine):
             mask[list(self.active)] = True
             pt = np.where(mask[:, None], pt, 0)
             sl = np.where(mask, sl, 0)
-        fb, fp, ft, n_items = build_work_list(pt, sl, self.page_size)
+        covered = None
+        if self.seqpar:
+            # this rank's work list over its own pages (LOCAL ids), and the
+            # rows it touches
+            r = self.mesh.tp_rank
+            fb, fp, ft, n_items, cov = self._sharded.build_lists(
+                pt, sl, self.page_size, self._n_pages)
+            fb, fp, ft, n_items, covered = fb[r], fp[r], ft[r], n_items[r], cov[r]
+        else:
+            fb, fp, ft, n_items = build_work_list(pt, sl, self.page_size)
         # one host-to-device copy into the fixed buffer the step graph reads
         # (the work list is padded to max_batch * max_pages entries, so its
         # length never changes)
-        packed = torch.from_numpy(pack_chunk_meta(pt, fb, fp, ft, n_items))
+        packed = torch.from_numpy(pack_chunk_meta(pt, fb, fp, ft, n_items, covered))
         if self._packed is None or self._packed.shape != packed.shape:
             self._packed = packed.to(self.device)
             if self.graph_cache is not None:
@@ -694,10 +766,12 @@ class PagedEngine(Engine):
         else:
             self._packed.copy_(packed)
         self.n_decode_steps += steps
-        toks = run_chunk_paged(
+        run = run_chunk_paged if self._sharded is None else self._sharded.run_chunk
+        toks = run(
             self.cfg, self.params, self.state, self.k_pages, self.v_pages,
             self.generator,
-            unpack_chunk_meta(self._packed, (pt.shape[0], pt.shape[1], len(fb))),
+            unpack_chunk_meta(self._packed, (pt.shape[0], pt.shape[1], len(fb)),
+                              covered is not None),
             steps, page_size=self.page_size, temperature=self.temperature,
             top_k=self.top_k, top_p=self.top_p, rope=self.rope,
             graphs=self.graph_cache)

@@ -94,7 +94,7 @@ def decode_chunk(cfg: ModelConfig, params, state: DecodeState, kv_cache,
                  generator, steps: int, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 1.0, active_len: int = 0,
                  rope=None, fused: bool = False, drop_past_end: bool = True,
-                 graphs: Optional[GraphCache] = None):
+                 graphs: Optional[GraphCache] = None, forward_fn=None):
     """Run `steps` decode iterations on the device.
 
     state: the batch's token, pos (int32 [B]), done (bool [B], rows already
@@ -114,8 +114,12 @@ def decode_chunk(cfg: ModelConfig, params, state: DecodeState, kv_cache,
       (decoder.forward); False promises that no row gets there.
     graphs: replay each step as a CUDA graph (serving/graphs.py), keyed as
       the JAX package keys its jitted chunk: (route, B, window, cache
-      dtype, sampling, mode, drop_past_end). The chunk kernel's route is one
-      launch a chunk already and stays eager.
+      dtype, sampling, mode, drop_past_end), and a forward_fn's mesh key.
+      The chunk kernel's route is one launch a chunk already and stays
+      eager.
+    forward_fn: runs each step's forward in place of `decoder.forward`
+      (parallel/sharded.py ShardedForward, on this rank's weights and
+      cache; the megakernels do not apply).
     Returns (tokens int32 [B, steps], token, pos, kv_cache, done), all on
     the device; token, pos and done are the state's. Emitted tokens after a
     row finishes repeat the stop token.
@@ -126,6 +130,8 @@ def decode_chunk(cfg: ModelConfig, params, state: DecodeState, kv_cache,
         cache = dict(k=kv_cache["k"][:, :, :active_len],
                      v=kv_cache["v"][:, :, :active_len])
     small = big = False
+    if fused and forward_fn is not None:
+        raise ValueError("decode_chunk: the megakernels take no forward_fn")
     if fused:
         if rope is None:
             rope = decoder.build_rope(cfg, state.token.device)
@@ -151,11 +157,13 @@ def decode_chunk(cfg: ModelConfig, params, state: DecodeState, kv_cache,
         else:
             logits, _ = decoder.decode_step(cfg, params, state.token, state.pos,
                                             cache, rope=rope,
-                                            drop_past_end=drop_past_end)
+                                            drop_past_end=drop_past_end,
+                                            forward_fn=forward_fn)
         state.emit(logits, generator, temperature, top_k, top_p)
 
     key = (route, state.token.shape[0], cache["k"].shape[2], kv_cache["k"].dtype,
-           temperature, top_k, top_p, "fast", drop_past_end)
+           temperature, top_k, top_p, "fast", drop_past_end,
+           getattr(forward_fn, "key", None))
     static = (cache["k"], cache["v"], *(rope or ()))
     toks = run_steps(state, step, steps, graphs, key, static, rng=temperature > 0)
     return toks, state.token, state.pos, kv_cache, state.done
@@ -193,12 +201,22 @@ class Generator:
 
     The cache and the decode state of each batch size are kept across calls
     (a graph keeps their pointers) and zeroed at the start of each call, and
-    one torch.Generator is reseeded with each call's seed."""
+    one torch.Generator is reseeded with each call's seed.
+
+    forward_fn: a tensor-parallel forward (parallel/sharded.py
+    ShardedForward) over this rank's `params`, as the JAX Generator takes
+    one: every rank of the model group runs the same calls with the same
+    prompts and seed, and samples the same token from the same gathered
+    logits. The cache is `forward_fn.shard_cache`'s part, the megakernels
+    are off, and decode graphs are taken only where the group's
+    collectives can be captured (NCCL): under gloo the route is eager
+    (graphs=True there raises). Its mesh must have dp = 1: the Generator's
+    state is the whole batch."""
 
     def __init__(self, cfg: ModelConfig, params, tokenizer=None,
                  cache_len: Optional[int] = None, cache_dtype=torch.float32,
                  chunk: int = 64, fused_step: Optional[bool] = None,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, forward_fn=None):
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -206,10 +224,19 @@ class Generator:
         self.cache_dtype = cache_dtype
         self.chunk = chunk
         self.fused_step = fused_step
+        self.forward_fn = forward_fn
         self.device = params["tok_emb"].device
         if graphs and self.device.type != "cuda":
             raise ValueError(f"graphs=True needs the params on a CUDA device, "
                              f"not {self.device}")
+        mesh = getattr(forward_fn, "mesh", None)
+        if mesh is not None and mesh.dp != 1:
+            raise ValueError(f"Generator: a forward_fn over dp={mesh.dp} data "
+                             "ranks; each data rank runs its own Generator on "
+                             "a tp-only mesh")
+        if graphs and mesh is not None and not mesh.graphs_capturable():
+            raise ValueError(f"graphs=True: the {mesh.backend} group's "
+                             "collectives cannot be captured in a CUDA graph")
         self.graphs = graphs
         self.rope = decoder.build_rope(cfg, self.device)
         self.rng = torch.Generator(device=self.device)
@@ -220,7 +247,9 @@ class Generator:
         """Whether decode steps replay CUDA graphs (see `graphs`)."""
         if self.graphs is not None:
             return self.graphs
-        return self.device.type == "cuda" and linear_mod.kernels_on()
+        mesh = getattr(self.forward_fn, "mesh", None)
+        return (self.device.type == "cuda" and linear_mod.kernels_on()
+                and (mesh is None or mesh.graphs_capturable()))
 
     def _batch(self, B: int, stop_ids):
         """The B-row cache and decode state, zeroed, with `stop_ids`."""
@@ -229,6 +258,8 @@ class Generator:
             dev = self.device
             cache = decoder.init_kv_cache(self.cfg, batch=B, max_len=self.cache_len,
                                           dtype=self.cache_dtype, device=dev)
+            if self.forward_fn is not None:
+                cache = self.forward_fn.shard_cache(cache)
             state = DecodeState(torch.zeros((B,), dtype=torch.int32, device=dev),
                                 torch.zeros((B,), dtype=torch.int32, device=dev),
                                 torch.zeros((B,), dtype=torch.bool, device=dev),
@@ -245,7 +276,7 @@ class Generator:
         that fits at the smallest window, the big plan only under
         KT_FUSED_BIG=1 (each chunk re-checks its own window in
         `decode_chunk`)."""
-        if B != 1 or self.fused_step is False:
+        if B != 1 or self.fused_step is False or self.forward_fn is not None:
             return False
         blocks = self.params["blocks"]
         alen = min(_bucket_len(1), self.cache_len)
@@ -297,7 +328,7 @@ class Generator:
         last_logits, cache = decoder.prefill(
             cfg, self.params, torch.from_numpy(tokens).to(dev), cache,
             prompt_lens=torch.tensor(lens, dtype=torch.int32, device=dev),
-            rope=self.rope,
+            rope=self.rope, forward_fn=self.forward_fn,
         )
         token = sample_token(last_logits, gen, temperature, top_k, top_p)
         state.token.copy_(token)
@@ -322,7 +353,7 @@ class Generator:
                 cfg, self.params, state, cache, gen, steps=steps,
                 temperature=temperature, top_k=top_k, top_p=top_p,
                 active_len=active, rope=self.rope, fused=fused,
-                drop_past_end=False, graphs=graphs,
+                drop_past_end=False, graphs=graphs, forward_fn=self.forward_fn,
             )
             max_pos += steps
             toks_np = toks.cpu().numpy()  # the chunk's one trip to the host

@@ -17,7 +17,8 @@ step leaves the host out of the step.
   * a capture executes nothing, so it adds nothing to the kernels' launch
     counters: each graph records its launches per counted wrapper at
     capture, and every replay adds them, so the counters say how many
-    kernels ran on every route;
+    kernels ran on every route. The collectives' calls and bytes
+    (parallel/collectives.py) are counted the same way;
   * a graph keeps the pointers of `static` (the tensors the step reads and
     writes in place) and of the kernels' workspaces
     (ops/kernels/workspace.py). A replay refuses static tensors that moved,
@@ -41,6 +42,7 @@ from ..ops.kernels import fused_decode_big as fb
 from ..ops.kernels import paged_attention as pa
 from ..ops.kernels import quant_matmul as qm
 from ..ops.kernels import workspace
+from ..parallel import collectives
 
 
 def counted_kernels():
@@ -49,6 +51,13 @@ def counted_kernels():
     return (qm.quant_gemv, qm.quant_gemm, fd.fused_decode_step,
             fd.fused_decode_chunk, fb.fused_decode_step_big,
             pa.paged_attention_flat)
+
+
+def _counters():
+    """(object, attribute) of every count a replay adds to: the kernels'
+    launches, the collectives' calls and bytes."""
+    return ([(w, "launches") for w in counted_kernels()]
+            + [(c, a) for c in collectives.counted() for a in ("launches", "bytes")])
 
 
 class CudaStepGraph:
@@ -107,7 +116,7 @@ STEP_GRAPH = CudaStepGraph
 class _Entry:
     graph: object
     ptrs: tuple     # data pointers of the static tensors at capture
-    launches: tuple  # launches per counted_kernels() wrapper, per replay
+    launches: tuple  # per _counters() entry, added by each replay
     epoch: int      # workspace.epoch at capture
 
 
@@ -155,8 +164,8 @@ class GraphCache:
         except BaseException:
             workspace.invalidate()
             raise
-        for wrapper, n in zip(counted_kernels(), entry.launches):
-            wrapper.launches += n
+        for (obj, attr), n in zip(_counters(), entry.launches):
+            setattr(obj, attr, getattr(obj, attr) + n)
         self.n_replays += 1
 
     def _capture(self, key, fn, static, rng):
@@ -165,8 +174,8 @@ class GraphCache:
         if self._pool is None:
             self._pool = STEP_GRAPH.new_pool(self.device)
         STEP_GRAPH.run_eager(self._stream, fn)  # the key's first step
-        wrappers = counted_kernels()
-        before = [w.launches for w in wrappers]
+        counters = _counters()
+        before = [getattr(o, a) for o, a in counters]
         epoch = workspace.epoch
         t0 = time.perf_counter()
         try:
@@ -177,9 +186,9 @@ class GraphCache:
             workspace.invalidate()
             raise
         finally:
-            launches = tuple(w.launches - b for w, b in zip(wrappers, before))
-            for w, b in zip(wrappers, before):
-                w.launches = b
+            launches = tuple(getattr(o, a) - b for (o, a), b in zip(counters, before))
+            for (o, a), b in zip(counters, before):
+                setattr(o, a, b)
         self.capture_s += time.perf_counter() - t0
         if workspace.epoch != epoch:
             raise RuntimeError(f"decode graph {key}: a workspace grew during "
@@ -190,6 +199,13 @@ class GraphCache:
         if key in self._seen:
             self.n_recaptures += 1
         self._seen.add(key)
+
+    def captured(self) -> list:
+        """Per graph: what one replay adds to each count, by name (a
+        kernel's launches; a collective's `.launches` and `.bytes`)."""
+        names = [f"{o.__name__}.{a}" if o in collectives.counted() else o.__name__
+                 for o, a in _counters()]
+        return [dict(zip(names, e.launches)) for e in self._graphs.values()]
 
     def stats(self) -> dict:
         return dict(n_captures=self.n_captures, n_recaptures=self.n_recaptures,

@@ -63,6 +63,19 @@ def test_generate_matches_jax(models):
     assert got.tokens[0] == tm.predict(tm.encode("hi"))
 
 
+def test_init_cache_dtype_matches_jax_generator(models):
+    """init(cache_dtype=) builds the Generator's cache in that dtype: over a
+    bf16 cache, greedy tokens equal the JAX Generator's over one."""
+    from kuiperllama_tpu.serving.generate import Generator as JGenerator
+
+    jm, _ = models
+    tm = KuiperModel.from_checkpoint(CKPT).init(dtype=torch.float32, device="cpu",
+                                                cache_len=128, cache_dtype=torch.bfloat16)
+    jg = JGenerator(jm.cfg, jm.params, cache_len=128, cache_dtype=jnp.bfloat16)
+    assert tm.generate_ids(PROMPT_IDS, 20) == jg.generate_ids(PROMPT_IDS, 20)[0]
+    assert tm._generator._decode[1][0]["k"].dtype == torch.bfloat16
+
+
 def test_tokenizer_and_embedding_match_jax(models):
     jm, tm = models
     assert tm.encode("hi hi") == jm.encode("hi hi")

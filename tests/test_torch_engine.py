@@ -203,9 +203,3 @@ def test_oversized_request_fails_loudly(model):
     with pytest.raises(RuntimeError, match="KV pages"):
         te.run([])
 
-
-def test_mesh_and_seqpar_name_the_parallelism_slice(model):
-    _, _, cfg, tp = model
-    for kw in (dict(mesh=object()), dict(seqpar=True)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            teng.PagedEngine(cfg, tp, **kw)

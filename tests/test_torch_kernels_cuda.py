@@ -1051,3 +1051,73 @@ def test_sampling_race_equals_multinomial(dev):
         g.manual_seed(seed)
         got = sample_token(logits, g, temperature=0.7)
         assert torch.equal(got, want[:, 0].to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The shard shapes of the parallel paths (kuiperllama_tpu_torch/parallel):
+# Llama-2-7B INT8 g 64 at tp = 2, each projection on the kernel its route
+# takes at one row (the GEMV up to 64 groups, else the GEMM), the GEMM at
+# the prefill's 32 rows and the engine's 8; the paged kernel at tp = 2's 16
+# kv heads and at seqpar's full lanes over one rank's block of pages.
+
+TP2_SHAPES = [("wqkv", 4096, 6144), ("wo", 2048, 4096), ("w13", 4096, 11008),
+              ("w2", 5504, 4096), ("lm_head", 4096, 16000)]
+
+
+@pytest.mark.parametrize("name,K,N", TP2_SHAPES)
+@pytest.mark.parametrize("M", [1, 8, 32])
+def test_tp2_shard_shapes_match_plain(dev, name, K, N, M):
+    from kuiperllama_tpu_torch.ops.linear import quant_kernel
+
+    x, q, s = _operands(dev, M, K, N, 64, torch.bfloat16, torch.bfloat16)
+    before = qm.quant_gemv.launches + qm.quant_gemm.launches
+    got = quant_kernel(x, q, s, 64)
+    torch.cuda.synchronize()
+    assert qm.quant_gemv.launches + qm.quant_gemm.launches == before + 1
+    gemv = M == 1 and K // 64 <= 64
+    want = (qm.quant_gemv_ref if gemv else qm.quant_gemm_ref)(x, q, s, 64)
+    assert _rel(got, want) <= BF16_ULP
+    # an fp32 row (two ranks exchange fp32 partials) holds to fast mode's limit
+    got32 = quant_kernel(x.float(), q, s, 64)
+    assert got32.dtype == torch.float32
+    assert _rel(got32, (qm.quant_gemv_ref if gemv else qm.quant_gemm_ref)(
+        x.float(), q, s, 64)) <= TOL["fast"]
+
+
+def test_paged_attention_tp2_and_seqpar_shards(dev):
+    """tp = 2: 16 of Llama-2-7B's 32 kv heads (2048 lanes). seqpar: each
+    rank's block of the pages with local ids; rows a rank does not cover
+    get the flash identity, and the merged partials equal the unsplit
+    kernel."""
+    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
+    from kuiperllama_tpu_torch.parallel.seqpar import build_work_lists_sharded
+
+    lens = [1, 127, 128, 129, 300, 512, 777, 1024]
+    q, (kp, vp), work, sl = _paged_case(dev, torch.bfloat16, 128, 1, 128, lens, KH=16)
+    acc, m, l = pa.paged_attention_flat(q, kp, vp, *work, sl, page_size=128, layer_idx=1)
+    ra, rm, rl = pa.paged_attention_flat_ref(q, kp, vp, *work, sl, page_size=128,
+                                             layer_idx=1)
+    assert _rel(acc / l[..., None], ra / rl[..., None]) <= 1e-3
+
+    q, (kp, vp), work, sl = _paged_case(dev, torch.bfloat16, 64, 7, 128, lens, seed=1)
+    P = kp.shape[1] - 1  # even: pages 1 .. P-1 hold the rows, page P is spare
+    kp, vp = kp[:, :P].contiguous(), vp[:, :P].contiguous()
+    rng = np.random.default_rng(2)
+    pt = rng.permutation(np.arange(1, P))[:8 * 8].reshape(8, 8).astype(np.int32)
+    sln = np.asarray(lens, np.int32)
+    full = [torch.from_numpy(a).to(dev) for a in pa.build_work_list(pt, sln, 128)]
+    ref = pa.paged_attention_flat(q, kp, vp, *full, sl, page_size=128, layer_idx=1)
+    fb, fp, ft, ni, cov = build_work_lists_sharded(pt, sln, 128, 2, P, pad_to=pt.size)
+    parts = []
+    for r in range(2):
+        lw = [torch.from_numpy(np.ascontiguousarray(a[r])).to(dev) for a in (fb, fp, ft, ni)]
+        kr, vr = (p[:, r * P // 2:(r + 1) * P // 2].contiguous() for p in (kp, vp))
+        got = pa.paged_attention_flat(q, kr, vr, *lw, sl, page_size=128, layer_idx=1)
+        want = pa.paged_attention_flat_ref(q, kr, vr, *lw, sl, page_size=128, layer_idx=1)
+        c = torch.from_numpy(cov[r]).to(dev)
+        assert _rel(got[0][c] / got[2][c][..., None], want[0][c] / want[2][c][..., None]) <= 1e-3
+        assert (got[0][~c] == 0).all() and (got[2][~c] == 0).all()
+        assert (got[1][~c] == pa.NEG_INF).all()
+        parts.append(got)
+    merged = pa.merge_flash_many(*(torch.stack([p[j] for p in parts]) for j in range(3)))
+    assert _rel(merged, ref[0] / ref[2][..., None]) <= 1e-3

@@ -159,3 +159,14 @@ def test_fresh_interpreter_imports_bench_torch_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_scan_covers_the_parallel_slice():
+    """The parallel slice's modules are scanned, and what the gloo ranks of
+    the CPU tests run (tests/torch_rank_cases.py, in processes that import
+    only torch and the port) imports neither JAX nor the JAX package."""
+    scanned = {f.relative_to(PKG).as_posix() for f, _ in _port_sources()}
+    assert {f"parallel/{m}.py" for m in ("mesh", "collectives", "shardings", "sharded",
+                                         "sharded_paged", "seqpar", "launch")} <= scanned
+    cases = REPO / "tests" / "torch_rank_cases.py"
+    assert not [n for n in _modules(cases, ["tests"]) if _banned(n)]
