@@ -234,12 +234,16 @@ def probe(dev, mxu: bool) -> dict:
 
 def bench_decode(args, cfg, params, dev, probes) -> dict:
     """B = args.batch greedy decode through the Generator: one warm-up, then
-    the best of three runs of args.steps tokens. On the card the decode
-    steps replay CUDA graphs (the Generator's default); the warm-up's 8
-    tokens open the 256-slot attention window that the timed runs read at
-    the default lengths (32 + 128 tokens), so its first step captures the
-    step graph and no timed run includes a capture
-    (`graph_captures_timed` counts any that does)."""
+    the best of three runs of args.steps tokens. On the card the prefill
+    and the decode steps replay CUDA graphs (the Generator's default); the
+    warm-up's 8 tokens open the 256-slot attention window that the timed
+    runs read at the default lengths (32 + 128 tokens), so its first step
+    captures the step graph, and its prefill captures the prefill's. A
+    second warm-up prefill captures that graph again if the first decode
+    step grew a workspace after it (a megakernel's scratch), so
+    `prefill_ms` is a replay's. No timed run includes a capture
+    (`graph_captures_timed` and `prefill_captures_timed` count any that
+    does)."""
     import torch
 
     from kuiperllama_tpu_torch.serving.generate import Generator
@@ -249,7 +253,9 @@ def bench_decode(args, cfg, params, dev, probes) -> dict:
     prompts = [list(range(5, 5 + args.prompt_len))] * args.batch
     t0 = time.perf_counter()
     gen.generate_batch_ids(prompts, max_new_tokens=8)
+    gen.generate_batch_ids(prompts, max_new_tokens=1)
     captures = gen.graph_cache.n_captures
+    prefill_captures = gen.graph_cache.prefill.captures
     if args.verbose:
         print(f"[bench] warmup {time.perf_counter() - t0:.1f}s", file=sys.stderr)
 
@@ -293,7 +299,24 @@ def bench_decode(args, cfg, params, dev, probes) -> dict:
         "decode_graphs": gen.graphs_on(),
         "graph_capture_s": round(gen.graph_cache.capture_s, 4),
         "graph_captures_timed": gen.graph_cache.n_captures - captures,
+        **_prefill_graph_fields(gen.graph_cache if gen.graphs_on() else None,
+                                prefill_captures),
         "device": _device_name(dev),
+    }
+
+
+def _prefill_graph_fields(cache, captures_before_timed: int) -> dict:
+    """Whether prefills replay CUDA graphs, their captures (warm-up and
+    timed runs), recaptures, seconds in captures and the captures inside the
+    timed runs; None values on the eager route."""
+    p = None if cache is None else cache.prefill
+    return {
+        "prefill_graphs": p is not None,
+        "prefill_captures": None if p is None else p.captures,
+        "prefill_recaptures": None if p is None else p.recaptures,
+        "prefill_graph_capture_s": None if p is None else round(p.capture_s, 4),
+        "prefill_captures_timed": (None if p is None
+                                   else p.captures - captures_before_timed),
     }
 
 
@@ -526,7 +549,9 @@ def bench_engine(args, cfg, params, dev, probes) -> dict:
         return [Request(prompt_ids=list(range(5, 5 + plen(i))),
                         max_new_tokens=args.steps) for i in range(args.requests)]
 
-    eng.run(mk())  # warm-up on the whole workload
+    eng.run(mk())  # warm-up on the whole workload: it captures every key
+    prefill_captures = (eng.graph_cache.prefill.captures
+                        if eng.graph_cache is not None else 0)
     eng.prefill_wall_s = 0.0
     eng.prefill_tokens = 0
     eng.prefill_padded_tokens = 0
@@ -588,6 +613,7 @@ def bench_engine(args, cfg, params, dev, probes) -> dict:
         "decode_graphs": eng.graph_cache is not None,
         "graph_capture_s": (round(eng.graph_cache.capture_s, 4)
                             if eng.graph_cache is not None else None),
+        **_prefill_graph_fields(eng.graph_cache, prefill_captures),
         "device": _device_name(dev),
     }
     if (eng.prefill_wall_s > 0 and eng.prefill_padded_tokens

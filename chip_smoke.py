@@ -70,7 +70,15 @@ last line:
      equal tokens, exact launches on both, each route's decode profile.
      Every Generator and engine main path below runs both routes the same
      way: the row's `eager_*` fields, `first_token_differing` (None) and
-     the graph cache's `graphs` counters with its pool's bytes.
+     the graph cache's `graphs` counters (decode and prefill) with its
+     pool's bytes. The prefill replays a CUDA graph of itself too: each
+     Generator path (6, 6b, 7) emits a `prefill` row per PREFILL_LENS prompt
+     (32 tokens, the GEMM's bucket; 256, the dequantized matmul's), graph
+     route beside eager on the same weights, each on a new Generator: the
+     key's first call (eager run and capture) apart from the median of
+     PREFILL_WARM warm calls, device busy per prefill and the idle share
+     (torch.profiler), captures, recaptures, capture_s and pool bytes;
+     first token and last logits bit for bit equal, launches exact.
   6b. big route: Llama-2-7B INT8 g 64 (bf16 scales), the same setup under
      KT_FUSED_BIG=1: one big-kernel launch and one lm_head GEMV per decode
      step, counted exactly; the same weights on the layered route beside it
@@ -104,9 +112,11 @@ last line:
      defaults), 16 requests of 32 prompt and 128 new tokens submitted at
      once: Llama-2-7B, then TinyLlama-1.1B with prefill_chunk 256 and a
      768-token prompt on every 4th request, each on the graph route and
-     then on the eager one: tokens/s, TTFT, equal tokens, exact launch
-     counts on both, peak memory, and a profile of one decode chunk (both
-     routes for Llama-2-7B).
+     then on the eager one: tokens/s, TTFT, the single-shot prefill's
+     wall, equal tokens, exact launch counts on both, peak memory, and a
+     profile of one decode chunk (both routes for Llama-2-7B). The warm-up
+     opens every prefill key the timed run takes (a 32-token prompt, and a
+     long one for the chunked engine), so its prefills replay.
  11. server: InferenceServer and its HTTP front end on 127.0.0.1 over a
      PagedEngine of the fixture: concurrent requests answer the CPU
      engine's tokens, an invalid one gets a 400 and serving continues; a
@@ -129,7 +139,8 @@ last line:
      against the plain version on the CPU (FUSED_TOL) and 128 greedy tokens
      equal up to a logit tie (TIE_TOL).
  14. bench: bench_torch.py in child processes with --selftest, the default
-     (Llama-2-7B INT8 g 256, layered), --model tinyllama-1.1b and --engine:
+     (Llama-2-7B INT8 g 256, layered), --model tinyllama-1.1b, --engine and
+     --engine --arrival-rate (Poisson arrivals: TTFT under load):
      each exits 0 with the one-line contract, every selftest error within
      TOL, PAGED_TOL (fp32 pools) and FUSED_TOL, the megakernel's argmax
      equal, and the selftest launched each kernel it holds.
@@ -152,8 +163,9 @@ last line:
      128 tokens, 64-step chunks, 128-token pages); (c) the (b) engine
      through ShardedPagedStep on a world of one NCCL rank in this process,
      graphs on: tokens and prefill logits bit-identical to the
-     single-device engine's graph route, the same launches, and each decode
-     graph's captured collectives equal to the analytic bill; (d)
+     single-device engine's graph route, the same launches, each decode
+     graph's captured collectives equal to the analytic bill, and each
+     prefill graph's 2 L all-reduces and 1 all-gather captured; (d)
      PagedEngine(mesh=, seqpar=True) at sp = 2 on two gloo ranks
      (Qwen2.5-0.5B bf16, prefill_chunk 256, a 768-token prompt on every 4th
      request; then an exact run of 4 requests of 16 tokens on fp32 copies
@@ -291,7 +303,8 @@ PPL_TOL = {"ppl": 1e-4, "delta": 5e-4}
 TIE_TOL = 2e-3
 # bench_torch.py children: (label, arguments)
 BENCH_RUNS = [("selftest", ["--selftest"]), ("default", []),
-              ("tinyllama-1.1b", ["--model", "tinyllama-1.1b"]), ("engine", ["--engine"])]
+              ("tinyllama-1.1b", ["--model", "tinyllama-1.1b"]), ("engine", ["--engine"]),
+              ("engine arrival", ["--engine", "--arrival-rate", "8"])]
 
 # the parallel phase: two ranks on the one card; Llama-2-7B INT8 at g 64
 # (w2's 172 scale groups split 86 a rank at tp 2; g 256 leaves 21.5, which
@@ -332,6 +345,11 @@ GEMV_SHAPES = [("wqkv", 4096, 12288, 32), ("wo", 4096, 4096, 32),
                ("w13", 4096, 22016, 32), ("w2", 11008, 4096, 32),
                ("lm_head", 4096, 32000, 1)]
 PREFILL_M = 32
+# the prefill rows: a 32-token prompt (the GEMM's bucket) and a 256-token one
+# (ops/linear.py PREFILL_DEQUANT_ROWS: the dequantized matmul), each key's
+# first call apart from the median of PREFILL_WARM warm calls
+PREFILL_LENS = (32, 256)
+PREFILL_WARM = 5
 
 CARD = ""
 T0 = time.perf_counter()
@@ -539,12 +557,15 @@ def phase_fixture(dev):
 
 def timed_generate(gen, prompt, dev, new=128):
     """A warm-up of 8 tokens (it opens the timed run's 256-slot window, so a
-    graph route captures its step there, not in the timed run), then `new`
-    greedy tokens with every launch count zeroed just before and read just
-    after: (ids, prefill_s, decode_s, launches, peak memory bytes)."""
+    graph route captures its step there, not in the timed run) and one more
+    prefill (the first decode step may grow a megakernel's scratch after the
+    prefill's capture: this captures it again), then `new` greedy tokens
+    with every launch count zeroed just before and read just after: (ids,
+    prefill_s, decode_s, launches, peak memory bytes)."""
     import torch
 
     gen.generate_batch_ids([prompt], max_new_tokens=8)
+    gen.generate_batch_ids([prompt], max_new_tokens=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_launches()
@@ -590,6 +611,88 @@ def graph_route_ok(gen, graphs, decode_steps):
     return (gen.graphs_on() and graphs["n_captures"] == 1
             and graphs["n_recaptures"] == 0
             and graphs["n_replays"] == 7 - 1 + decode_steps)
+
+
+def prefill_route(gen, prompt, graphs):
+    """`prompt`'s prefill (max_new_tokens=1) on a new Generator with `gen`'s
+    weights and settings, on the graph route (graphs None: the card's
+    default) or the eager one: the key's first call (on the graph route its
+    eager run and capture), the median of PREFILL_WARM warm calls with the
+    launches of the last, and the device busy time of one more call under
+    torch.profiler. Returns (fields, first token, last logits, whether it
+    took graphs)."""
+    import statistics
+
+    from kuiperllama_tpu_torch.serving.generate import Generator
+
+    g = Generator(gen.cfg, gen.params, cache_len=gen.cache_len,
+                  cache_dtype=gen.cache_dtype, chunk=gen.chunk,
+                  fused_step=gen.fused_step, graphs=graphs)
+    run = lambda: g.generate_batch_ids([prompt], max_new_tokens=1)
+    ms = []
+    for _ in range(1 + PREFILL_WARM):
+        zero_launches()
+        rows, prefill_s, _ = run()
+        ms.append(prefill_s * 1e3)
+    launches = read_launches()
+    logits = g.prefill_logits[1].clone()
+    by_name, wall_ms = device_profile(run)
+    busy = sum(t for t, _ in by_name.values())
+    warm = statistics.median(ms[1:])
+    fields = dict(first_call_ms=ms[0], warm_median_ms=warm, warm_ms=ms[1:],
+                  device_busy_ms=busy if by_name else "not measured",
+                  device_idle_share=1 - busy / warm if by_name else "not measured",
+                  kernels_profiled=sum(n for _, n in by_name.values()),
+                  wall_ms_profiled=wall_ms, top_kernels=top_kernels(by_name, 1),
+                  launches=launches,
+                  graphs=graph_stats(g.graph_cache) if g.graphs_on() else None)
+    return fields, rows[0][0], logits, g.graphs_on()
+
+
+def phase_prefill(label, gen):
+    """A `prefill` row for each PREFILL_LENS prompt on `gen`'s path: the
+    graph route beside the eager one on the same weights (prefill_route).
+    Checks: the graph route taken, one capture and every later call a
+    replay, first token and last logits bit for bit equal, exact launches on
+    both (the GEMV of the B = 1 lm_head row and, below
+    PREFILL_DEQUANT_ROWS rows, the GEMM of each INT8 projection)."""
+    import torch
+
+    from kuiperllama_tpu_torch.ops.linear import PREFILL_DEQUANT_ROWS
+    from kuiperllama_tpu_torch.quant import QuantTensor
+    from kuiperllama_tpu_torch.serving.generate import _bucket
+
+    cfg = gen.cfg
+    quant = isinstance(gen.params["lm_head"], QuantTensor)
+    rows = []
+    for n in PREFILL_LENS:
+        prompt = [(5 + j) % (cfg.vocab_size - 1) + 1 for j in range(n)]
+        T = _bucket(n)
+        g, g_tok, g_logits, took = prefill_route(gen, prompt, None)
+        e, e_tok, e_logits, _ = prefill_route(gen, prompt, False)
+        gemm = 4 * cfg.n_layers if T < PREFILL_DEQUANT_ROWS else 0
+        expect = (dict(NO_LAUNCHES, quant_gemv=1, quant_gemm=gemm) if quant
+                  else dict(NO_LAUNCHES))
+        st = g["graphs"] or {}
+        logits_equal = bool(torch.equal(g_logits, e_logits))
+        ok = (took and g_tok == e_tok and logits_equal
+              and g["launches"] == expect and e["launches"] == expect
+              and st.get("n_prefill_captures") == 1
+              and st.get("n_prefill_recaptures") == 0
+              and st.get("n_prefill_replays") == PREFILL_WARM + 1
+              and bool(torch.isfinite(g_logits).all()))
+        row = dict(phase="prefill", model=label, prompt_len=n, bucket=T,
+                   route="graphs" if took else "eager", graph=g, eager=e,
+                   first_token=g_tok, first_token_equal=g_tok == e_tok,
+                   logits_bit_equal=logits_equal, launches_expected=expect,
+                   warm_speedup=e["warm_median_ms"] / g["warm_median_ms"],
+                   ok=ok, card=CARD)
+        emit(row)
+        if not ok:
+            raise AssertionError(f"{label}: the {n}-token prefill's graph route "
+                                 "differs from its eager route")
+        rows.append(row)
+    return rows
 
 
 def idle_share(prof, ms_per_token):
@@ -639,6 +742,7 @@ def phase_main_path(dev):
     in_vocab = all(0 <= t < cfg.vocab_size for t in ids)
     prof = profile_decode(cfg, params, gen, prompt, dev)
     prof_eager = profile_decode(cfg, params, gen, prompt, dev, graphs=False)
+    phase_prefill("llama2-7b g256 layered", gen)
     ok = (len(ids) == 128 and finite and in_vocab
           and logits.shape == (1, cfg.vocab_size)
           and launches == expect and eager["eager_launches_ok"]
@@ -1050,6 +1154,7 @@ def phase_fused_main_path(dev, label, preset, quantize):
           and launches == expect and eager["eager_launches_ok"]
           and first_diff is None and graph_route_ok(gen, graphs, steps))
     prof = profile_decode(cfg, params, gen, prompt, dev, fused=True, model=label)
+    phase_prefill(f"{label} megakernel route", gen)
     main_row = dict(phase="main_path", model=label, quant="int8" if quantize else "bf16",
                     group_size=256 if quantize else None, dtype="bf16", cache_len=CACHE_LEN,
                     prompt_len=32, new_tokens=len(ids), route="fused (auto), graphs",
@@ -1350,8 +1455,15 @@ def phase_engine_main_path(dev, label, preset, prefill_chunk=0, long_prompt=0,
                           chunk=ENGINE_CHUNK, page_size=ENGINE_PS,
                           cache_dtype=torch.bfloat16, prefill_chunk=prefill_chunk,
                           graphs=graphs)
-        eng.run([Request(prompt_ids=prompt(i, 16), max_new_tokens=4) for i in range(2)])
+        # the warm-up opens the decode key and every prefill key of the
+        # timed run: the single-shot T = 32 bucket, then the chunked wave's
+        # n_hist buckets with a long prompt
+        for n in (ENGINE_PROMPT, long_prompt):
+            if n:
+                eng.run([Request(prompt_ids=prompt(i, n), max_new_tokens=4)
+                         for i in range(2)])
         torch.cuda.synchronize()
+        warm = graph_stats(eng.graph_cache)
         reqs = [Request(prompt_ids=prompt(i, long_prompt if long_prompt and i % 4 == 3
                                           else ENGINE_PROMPT),
                         max_new_tokens=ENGINE_NEW) for i in range(ENGINE_REQUESTS)]
@@ -1370,7 +1482,9 @@ def phase_engine_main_path(dev, label, preset, prefill_chunk=0, long_prompt=0,
         expect = dict(NO_LAUNCHES, paged_attention=L * steps,
                       quant_gemm=steps * (4 * L + 1) + prefills)
         generated = sum(len(r.out_ids) for r in reqs)
+        ttft = sorted(r.ttft_s for r in reqs)
         out = dict(eng=eng, reqs=reqs, wall_s=wall_s, launches=launches,
+                   ttft=ttft, warm_graphs=warm,
                    expect=expect, peak=torch.cuda.max_memory_allocated(dev),
                    steps=steps, prefills=prefills, preemptions=eng.n_preemptions,
                    prefill_wall_s=eng.prefill_wall_s,
@@ -1393,14 +1507,19 @@ def phase_engine_main_path(dev, label, preset, prefill_chunk=0, long_prompt=0,
                  if a.out_ids != b.out_ids), None)
     generated = sum(len(r.out_ids) for r in reqs)
     steps = g["steps"]
-    ttft = sorted(r.ttft_s for r in reqs)
+    ttft, e_ttft = g["ttft"], e["ttft"]
     pct = lambda v, p: v[min(len(v) - 1, int(len(v) * p / 100))]
     in_vocab = all(0 <= t < vocab for r in reqs for t in r.out_ids)
     # the key opened in the warm-up: (B, max_pages) is fixed, so one
-    # capture serves every chunk length and admission
+    # capture serves every chunk length and admission; every prefill of
+    # the timed run replays a graph the warm-up captured
+    gr = g["graphs"] or {}
+    prefill_captures_timed = (gr.get("n_prefill_captures", 0)
+                              - g["warm_graphs"]["n_prefill_captures"])
     ok = (g["ok"] and e["ok"] and in_vocab and diff is None
           and g["graphs"] is not None and g["graphs"]["n_captures"] == 1
-          and g["graphs"]["n_recaptures"] == 0)
+          and g["graphs"]["n_recaptures"] == 0
+          and gr["n_prefill_replays"] >= 1 and gr["n_prefill_recaptures"] == 0)
     row = dict(phase="engine_main_path", model=label, quant="int8", group_size=256,
                dtype="bf16", slots=ENGINE_SLOTS, max_len=CACHE_LEN, chunk=ENGINE_CHUNK,
                page_size=ENGINE_PS, prefill_chunk=prefill_chunk,
@@ -1413,6 +1532,10 @@ def phase_engine_main_path(dev, label, preset, prefill_chunk=0, long_prompt=0,
                ttft_s_min=ttft[0], ttft_s_p50=pct(ttft, 50), ttft_s_p99=pct(ttft, 99),
                decode_steps=steps, prefill_calls=g["prefills"],
                single_shot_prefill_s=g["prefill_wall_s"],
+               eager_single_shot_prefill_s=e["prefill_wall_s"],
+               eager_ttft_s_min=e_ttft[0], eager_ttft_s_p50=pct(e_ttft, 50),
+               eager_ttft_s_p99=pct(e_ttft, 99),
+               prefill_captures_timed=prefill_captures_timed,
                wall_ms_per_decode_step=(g["wall_s"] - g["prefill_wall_s"]) / steps * 1e3,
                eager_wall_ms_per_decode_step=(e["wall_s"] - e["prefill_wall_s"]) / e["steps"] * 1e3,
                profile=dict(decode_ms_per_step=prof["decode_ms_per_step_unprofiled"],
@@ -1469,6 +1592,7 @@ def phase_recapture(dev):
     ok = (qwen.graphs_on() and qwen._fused_ok(1) and grown > 0
           and before["n_captures"] == 1 and before["n_recaptures"] == 0
           and after["n_captures"] == 2 and after["n_recaptures"] == 1
+          and after["n_prefill_recaptures"] >= 1
           and again == first and len(first) == 128
           and launches == dict(NO_LAUNCHES, fused_decode=127))
     emit(dict(phase="recapture", model="qwen2.5-0.5b", grown_by="tinyllama-1.1b (2 layers)",
@@ -2064,6 +2188,7 @@ def phase_big_main_path(dev):
         eager_ids, eager = eager_route(gen, prompt, dev, expect)
         prof = profile_decode(cfg, params, gen, prompt, dev, fused=True,
                               model="llama2-7b g64 big")
+        phase_prefill("llama2-7b g64 big route", gen)
     steps = len(ids) - 1
     ms_per_token = decode_s / steps * 1e3
     first_diff = first_difference(ids, eager_ids)
@@ -2953,6 +3078,7 @@ def phase_parallel(dev):
         c = par_run_engine(eng, cfg.vocab_size, 0, dev)
         graphs = graph_stats(eng.graph_cache)
         captured = eng.graph_cache.captured()
+        captured_prefill = eng.graph_cache.captured(prefill=True)
         del eng
     finally:
         dist.destroy_process_group()
@@ -2963,8 +3089,12 @@ def phase_parallel(dev):
         and g["all_reduce.bytes"] == per_step["all-reduce"]["bytes"]
         and g["all_gather.launches"] == per_step["all-gather"]["count"]
         and g["all_gather.bytes"] == per_step["all-gather"]["bytes"] for g in captured)
+    # each prefill graph: wo and w2 summed per layer, the last logits gathered
+    prefill_ok = (bool(captured_prefill) and graphs["n_prefill_replays"] >= 1
+                  and all(g["all_reduce.launches"] == 2 * L
+                          and g["all_gather.launches"] == 1 for g in captured_prefill))
     same = c["out_ids"] == eng_single["out_ids"]
-    ok = (same and replay_ok and c["launches"] == eng_single["launches"]
+    ok = (same and replay_ok and prefill_ok and c["launches"] == eng_single["launches"]
           and c["steps"] == eng_single["steps"] and graphs["n_captures"] >= 1
           and np.array_equal(c["prefill_logits"], eng_single["prefill_logits"]))
     emit(dict(phase="parallel", row="c", what="PagedEngine through ShardedPagedStep, "
@@ -2975,7 +3105,9 @@ def phase_parallel(dev):
               launches=c["launches"], single_launches=eng_single["launches"],
               decode_steps=c["steps"], prefill_calls=c["prefills"], graphs=graphs,
               collectives_per_replay=captured, analytic_per_step=per_step,
-              replay_collectives_ok=replay_ok, collectives=c["bill"],
+              replay_collectives_ok=replay_ok,
+              collectives_per_prefill_replay=captured_prefill,
+              prefill_collectives_ok=prefill_ok, collectives=c["bill"],
               tokens_per_s=ENGINE_REQUESTS * ENGINE_NEW / c["wall_s"],
               single_tokens_per_s=ENGINE_REQUESTS * ENGINE_NEW / eng_single["wall_s"],
               wall_ms_per_decode_step=(c["wall_s"] - c["prefill_wall_s"]) / c["steps"] * 1e3,

@@ -13,10 +13,11 @@ Qwen2.5), a port of kuiperllama_tpu/models/decoder.py.
     admit prefill passes S for the rows of live slots, and a done row that
     decodes past the cache writes nothing. Their rope row is clamped to the
     table's last, as JAX clamps the gather. On the card an out-of-range
-    index would fail, so a prefill writes only the kept (row, token) pairs,
-    and a decode step (one write per row) stores a dropped row's slot S - 1
-    back unchanged, which needs no host sync. A caller whose positions all
-    lie below S (the Generator) passes drop_past_end=False and skips both.
+    index would fail, so every slot is clamped to S - 1 and each write that
+    lands there carries the value the slot must end with (`_drop_writes`),
+    which needs no host sync: a CUDA graph can capture it. A caller whose
+    positions all lie below S (the Generator) passes drop_past_end=False
+    and skips it.
 """
 
 from __future__ import annotations
@@ -123,6 +124,24 @@ def _mlp_residual(cfg, blocks, li, x, attn_out, B, T, H, hd, mode="fast",
     return x + _row_parallel(act, blocks["w2"], li, mode, group)
 
 
+def _drop_writes(cache, new, at_end, has_last, last_tok):
+    """The values a T > 1 forward writes at its clamped slots [B, T] of one
+    layer's cache [B, S, KH, hd], so that the write keeps the meaning of a
+    scatter with mode="drop" for any mix of kept and dropped positions:
+    a slot below S - 1 takes its token's K/V; every write that lands on slot
+    S - 1 (`at_end`: the token at position S - 1 and each one past the end)
+    carries what that slot must end with, the K/V of the row's token at
+    position S - 1 where it has one (`has_last`, `last_tok`), else the
+    slot's old value. Duplicate indices then all carry one value, so the
+    write is exact in any order, and nothing syncs the host. Positions in a
+    row are distinct."""
+    B = new.shape[0]
+    rows = torch.arange(B, device=new.device)
+    new = new.to(cache.dtype)
+    end = torch.where(has_last, new[rows, last_tok], cache[:, -1])  # [B, KH, hd]
+    return torch.where(at_end[..., None, None], end[:, None], new)
+
+
 def forward(cfg: ModelConfig, params, tokens, positions, kv_cache,
             kv_len_mask=None, last_pos=None, *, rope=None, mode: str = "fast",
             drop_past_end: bool = True, group=None):
@@ -155,9 +174,12 @@ def forward(cfg: ModelConfig, params, tokens, positions, kv_cache,
     if drop_past_end and T == 1:
         keep = (slots < S)[..., None, None]
         slots = slots.clamp(max=S - 1)
-    elif drop_past_end:  # the kept (row, token) pairs; finding them syncs
-        rows, toks = torch.nonzero(slots < S, as_tuple=True)
-        slots = slots[rows, toks]
+    elif drop_past_end:
+        last_slot = slots == S - 1
+        has_last = last_slot.any(dim=1)[:, None, None]  # [B, 1, 1]
+        last_tok = last_slot.to(torch.int32).argmax(dim=1)  # its token, or 0
+        at_end = slots >= S - 1  # writes that land on slot S - 1
+        slots = slots.clamp(max=S - 1)
 
     blocks = params["blocks"]
     k_all, v_all = kv_cache["k"], kv_cache["v"]
@@ -174,8 +196,10 @@ def forward(cfg: ModelConfig, params, tokens, positions, kv_cache,
             v_cache[b_idx, slots] = torch.where(keep, v.to(v_cache.dtype),
                                                 v_cache[b_idx, slots])
         else:
-            k_cache[rows, slots] = k[rows, toks].to(k_cache.dtype)
-            v_cache[rows, slots] = v[rows, toks].to(v_cache.dtype)
+            k_cache[b_idx, slots] = _drop_writes(k_cache, k, at_end, has_last,
+                                                 last_tok)
+            v_cache[b_idx, slots] = _drop_writes(v_cache, v, at_end, has_last,
+                                                 last_tok)
         attn = attention_dense(q, k_cache, v_cache, positions, kv_len_mask)
         x = _mlp_residual(cfg, blocks, li, x, attn, B, T, H, hd, mode, group)
 

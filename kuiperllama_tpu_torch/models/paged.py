@@ -156,8 +156,10 @@ def prefill_chunk_paged(cfg: ModelConfig, params, tokens_chunk, chunk_start,
                         seqpar: bool = False):
     """One C-token chunk of a chunked prefill (C a multiple of the page size).
 
-    tokens_chunk [B, C]; chunk_start: int, absolute position of chunk token 0
-    (the same for every row of the admission wave); row_lens [B] prompt
+    tokens_chunk [B, C]; chunk_start: absolute position of chunk token 0
+    (the same for every row of the admission wave), an int or a 0-d int
+    tensor on the device, which JAX traces: a CUDA graph of the chunk then
+    serves every chunk start (serving/engine.py); row_lens [B] prompt
     lengths (rows that ended before chunk_start write to the garbage page
     through sentinel chunk_pages, and their logits are not selected);
     chunk_pages [B, C/ps] physical page per page slot of the chunk (2**30 for
@@ -174,7 +176,7 @@ def prefill_chunk_paged(cfg: ModelConfig, params, tokens_chunk, chunk_start,
     if C % ps:
         raise ValueError(f"prefill_chunk_paged: chunk {C} is not a multiple "
                          f"of the page size {ps}")
-    chunk_start = int(chunk_start)
+    chunk_start = torch.as_tensor(chunk_start, device=dev).long()
     n_hist = hist_pages.shape[1]
     S_hist = n_hist * ps
     row_lens = row_lens.long()
@@ -198,7 +200,7 @@ def prefill_chunk_paged(cfg: ModelConfig, params, tokens_chunk, chunk_start,
     # every chunk query, so the causal rule on layout positions is right
     q_layout_pos = (S_hist + torch.arange(C, device=dev)).expand(B, C)
     hist_valid = (torch.arange(S_hist, device=dev)[None]
-                  < row_lens.clamp(max=chunk_start)[:, None])
+                  < torch.minimum(row_lens, chunk_start)[:, None])
     chunk_valid = abs_pos[None] < row_lens[:, None]
     kv_mask = torch.cat([hist_valid, chunk_valid], dim=1)
 

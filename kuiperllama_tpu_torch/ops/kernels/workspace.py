@@ -5,7 +5,13 @@ and tile counters live here, one tensor per (device, name), reused by every
 launch and replaced by a larger one when a launch needs more. A CUDA graph
 keeps the pointers it captured, so every replacement raises `epoch`: a
 graph captured at an earlier epoch may point at freed memory, and
-serving/graphs.py captures it again before its next replay.
+serving/graphs.py captures it again before its next replay. The GEMM's
+split partials are not kept here: each call allocates its own (inside a
+capture, from the graph's pool), so a prefill at a larger bucket, which
+only raises the GEMM's rows, moves no epoch. The GEMV's counters grow with
+a weight's columns and the megakernels' scratch with their plan, so the
+first calls of a process move it, a decode step's after the prefill
+before it was captured.
 
 The counters start at zero and every kernel leaves them at zero. A launch
 or a replay that fails part way can leave them dirty; `invalidate` zeroes

@@ -55,6 +55,12 @@ class ShardedPagedStep:
     def _kw(self):
         return dict(group=self.group, seqpar=self.seqpar)
 
+    @property
+    def key(self) -> tuple:
+        """What the engine's prefill graph keys carry for this rank's step:
+        its kind and its mesh's key (parallel/mesh.py Mesh.key)."""
+        return ("seqpar" if self.seqpar else "tp",) + self.mesh.key
+
     # -- the entry points of models/paged.py
 
     def decode_chunk(self, cfg, params, token, pos, k_pages, v_pages, done,

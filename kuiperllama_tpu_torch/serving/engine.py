@@ -22,10 +22,18 @@ Sampling draws come from one torch.Generator on the engine's device (the
 JAX engine splits a jax.random key); admission samples greedily, as the
 JAX engine does.
 
-Decode steps replay CUDA graphs on the card (serving/graphs.py; `graphs=`
-as the Generator takes it): the token, position and done tensors, the
-caches and the PagedEngine's packed chunk metadata are fixed tensors that
-admission, retirement and preemption write in place, never rebind.
+Decode steps and prefills replay CUDA graphs on the card
+(serving/graphs.py; `graphs=` as the Generator takes it): the token,
+position and done tensors, the caches and the PagedEngine's packed chunk
+metadata are fixed tensors that admission, retirement and preemption write
+in place, never rebind. Each prefill reads its inputs from one fixed int32
+buffer per graph key, filled by one host-to-device copy
+(`_prefill_inputs`), and writes its last logits, first tokens and done
+flags into the engine's fixed `prefill_logits`, `prefill_first` and
+`prefill_done`, in admit order; the keys are the JAX package's jit keys:
+("admit", max_batch, T, S, cache dtype) for the dense admit,
+("prefill_paged", max_batch, T, mesh) and ("prefill_chunk", max_batch, C,
+n_hist, mesh) for the paged ones, where the chunk's start is an input.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ from ..models import decoder
 from ..ops.linear import kernels_on
 from ..ops.sampling import DecodeState, sample_greedy
 from .generate import _bucket, _bucket_len, _stop_array, decode_chunk
-from .graphs import GraphCache
+from .graphs import GraphCache, run_once
 
 
 @dataclass
@@ -82,7 +90,7 @@ def _admit_prefill(cfg: ModelConfig, params, tokens, n_tokens, admit_mask,
     slots that are not being admitted (live decode slots, free slots) carry
     padding and must not touch the cache: their positions are the sentinel
     S, whose writes decoder.forward drops. Returns (first [maxB], done
-    [maxB]), indexed by slot."""
+    [maxB], last logits [maxB, vocab]), indexed by slot."""
     B, T = tokens.shape
     S = kv_cache["k"].shape[2]
     dev = tokens.device
@@ -94,7 +102,7 @@ def _admit_prefill(cfg: ModelConfig, params, tokens, n_tokens, admit_mask,
                                 kv_len_mask, last_pos=n_tokens - 1, rope=rope)
     token = sample_greedy(logits[:, 0])
     done = (token[:, None] == stop_ids[None, :]).any(dim=-1)
-    return token, done
+    return token, done, logits[:, 0]
 
 
 class Engine:
@@ -131,6 +139,12 @@ class Engine:
         self.generator.manual_seed(seed)
         self.state = DecodeState(self.token, self.pos, self.done,
                                  self._stop_arr, chunk)
+        # a prefill's outputs, in admit order, and its inputs per graph key
+        self.prefill_first = torch.zeros((max_batch,), dtype=torch.int32, device=dev)
+        self.prefill_done = torch.zeros((max_batch,), dtype=torch.bool, device=dev)
+        self.prefill_logits = torch.zeros((max_batch, cfg.vocab_size),
+                                          dtype=torch.float32, device=dev)
+        self._prefill_in: Dict[tuple, torch.Tensor] = {}
         if graphs and dev.type != "cuda":
             raise ValueError(f"graphs=True needs the params on a CUDA device, "
                              f"not {dev}")
@@ -179,8 +193,49 @@ class Engine:
     def _reserve(self, slot: int, req: Request):
         pass
 
+    def _cache_tensors(self) -> tuple:
+        return self.cache["k"], self.cache["v"]
+
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _prefill_inputs(self, key, parts):
+        """The int32 arrays `parts` packed into the fixed input buffer of
+        prefill key `key` by ONE host-to-device copy: (buffer, a view of it
+        shaped as each part)."""
+        flat = np.concatenate([np.asarray(a, np.int32).ravel() for a in parts])
+        buf = self._prefill_in.get(key)
+        if buf is None:
+            buf = self._prefill_in[key] = torch.zeros(flat.shape, dtype=torch.int32,
+                                                      device=self.device)
+        buf.copy_(torch.from_numpy(flat))
+        views, o = [], 0
+        for a in parts:
+            n = np.size(a)
+            views.append(buf[o:o + n].view(np.shape(a)))
+            o += n
+        return buf, views
+
+    def _emit_first(self, logits, first=None, done=None):
+        """A prefill's end, in place on the fixed outputs: the last logits,
+        the greedy first tokens and their done flags (computed here unless
+        given)."""
+        if first is None:
+            first = sample_greedy(logits)
+            done = (first[:, None] == self._stop_arr[None, :]).any(dim=-1)
+        self.prefill_logits.copy_(logits)
+        self.prefill_first.copy_(first)
+        self.prefill_done.copy_(done)
+
+    def _run_prefill(self, key, fn, buf):
+        """`fn` (a prefill over `buf` into the fixed outputs) eagerly or as
+        a replay of its graph (serving/graphs.py). Returns (first tokens,
+        done flags): the fixed outputs, in admit order."""
+        static = (buf, self.prefill_first, self.prefill_done,
+                  self.prefill_logits, self._stop_arr, *self._cache_tensors(),
+                  *self.rope)
+        run_once(self.graph_cache, key, fn, static)
+        return self.prefill_first, self.prefill_done
 
     def _prefill_batch(self, slots: np.ndarray, toks: np.ndarray,
                        lens: np.ndarray):
@@ -198,12 +253,18 @@ class Engine:
                 continue
             toks_slot[s], lens_slot[s], admit[s] = toks[i], lens[i], True
             back[i] = s
-        first, done = _admit_prefill(
-            self.cfg, self.params, self._to_dev(toks_slot),
-            self._to_dev(lens_slot), self._to_dev(admit), self.cache,
-            self._stop_arr, rope=self.rope)
-        idx = self._to_dev(back)
-        return first[idx], done[idx]
+        key = ("admit", Bm, T, self.max_len, self.cache_dtype)
+        buf, (tok, n, adm, idx) = self._prefill_inputs(
+            key, (toks_slot, lens_slot, admit, back))
+
+        def fn():
+            first, done, logits = _admit_prefill(
+                self.cfg, self.params, tok, n, adm.bool(), self.cache,
+                self._stop_arr, rope=self.rope)
+            i = idx.long()
+            self._emit_first(logits[i], first[i], done[i])
+
+        return self._run_prefill(key, fn, buf)
 
     def _run_chunk(self):
         live = max((int(self._pos_np[s]) for s in self.active), default=0)
@@ -564,7 +625,13 @@ class PagedEngine(Engine):
         T = -(-maxlen // C) * C
         toks, lens, slots = self._admit_rows(admits, T)
         self._wave = dict(admits=admits, toks=toks, lens=lens, slots=slots,
-                          T=T, progress=0, last_logits=None)
+                          T=T, progress=0)
+
+    def _cache_tensors(self) -> tuple:
+        return self.k_pages, self.v_pages
+
+    def _mesh_key(self):
+        return None if self._sharded is None else self._sharded.key
 
     def _advance_wave(self):
         from ..models.paged import prefill_chunk_paged
@@ -590,21 +657,28 @@ class PagedEngine(Engine):
             valid = chunk_pos < w["lens"][i]
             cp[i, valid] = pt[slot, (chunk_pos // ps)[valid]]
             hp[i, :n_need] = pt[slot, :n_need]
-        fn = prefill_chunk_paged if self._sharded is None else self._sharded.prefill_chunk
-        logits, ends, self.k_pages, self.v_pages = fn(
-            self.cfg, self.params, self._to_dev(w["toks"][:, start:start + C]),
-            start, self._to_dev(w["lens"]), self.k_pages, self.v_pages,
-            self._to_dev(cp), self._to_dev(hp), rope=self.rope)
+        # the chunk's start is an input, as JAX traces it: one graph serves
+        # every chunk of an n_hist bucket
+        key = ("prefill_chunk", Bpad, C, n_hist, self._mesh_key())
+        buf, (tok, cs, n, cpd, hpd) = self._prefill_inputs(
+            key, (w["toks"][:, start:start + C], start, w["lens"], cp, hp))
+        chunk = prefill_chunk_paged if self._sharded is None else self._sharded.prefill_chunk
+
+        def fn():
+            logits, ends, _, _ = chunk(self.cfg, self.params, tok, cs, n,
+                                       self.k_pages, self.v_pages, cpd, hpd,
+                                       rope=self.rope)
+            # each row's logits are taken in the chunk that holds its last
+            # prompt token; its first token and done flag are final after
+            # the wave's last chunk
+            self._emit_first(torch.where(ends[:, None], logits,
+                                         self.prefill_logits))
+
+        first, done = self._run_prefill(key, fn, buf)
         self.n_prefill_calls += 1
-        if w["last_logits"] is None:
-            w["last_logits"] = logits
-        else:
-            w["last_logits"] = torch.where(ends[:, None], logits, w["last_logits"])
         w["progress"] = start + C
         if w["progress"] >= w["T"]:
             self._wave = None
-            first = sample_greedy(w["last_logits"])
-            done = (first[:, None] == self._stop_arr[None, :]).any(dim=-1)
             self._activate(w["admits"], w["slots"], w["lens"], first, done)
             for request_id in self._cancel_after_wave:
                 self.cancel(request_id)
@@ -691,14 +765,16 @@ class PagedEngine(Engine):
                 continue
             n = int(lens[i])
             token_pages[i, :n] = self.allocator.page_table[slots[i], arange_t[:n] // ps]
-        fn = prefill_paged if self._sharded is None else self._sharded.prefill
-        last, self.k_pages, self.v_pages = fn(
-            self.cfg, self.params, self._to_dev(toks), self._to_dev(lens),
-            self.k_pages, self.v_pages, self._to_dev(token_pages),
-            rope=self.rope)
-        token = sample_greedy(last)
-        done = (token[:, None] == self._stop_arr[None, :]).any(dim=-1)
-        return token, done
+        key = ("prefill_paged", Ba, T, self._mesh_key())
+        buf, (tok, n, tp) = self._prefill_inputs(key, (toks, lens, token_pages))
+        prefill = prefill_paged if self._sharded is None else self._sharded.prefill
+
+        def fn():
+            last, _, _ = prefill(self.cfg, self.params, tok, n, self.k_pages,
+                                 self.v_pages, tp, rope=self.rope)
+            self._emit_first(last)
+
+        return self._run_prefill(key, fn, buf)
 
     def _run_chunk(self):
         from ..models.paged import pack_chunk_meta, run_chunk_paged, unpack_chunk_meta

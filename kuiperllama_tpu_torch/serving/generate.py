@@ -44,7 +44,7 @@ from ..ops.kernels.fused_decode import (fits_vmem, fused_decode_chunk,
 from ..ops.kernels.fused_decode_big import fits_vmem_big, fused_decode_step_big
 from ..ops.linear import linear
 from ..ops.sampling import DecodeState, sample_token
-from .graphs import GraphCache, run_steps
+from .graphs import GraphCache, run_once, run_steps
 
 MAX_STOP_IDS = 8
 
@@ -193,15 +193,20 @@ class Generator:
     auto); True forces them (on the CPU that
     runs their plain versions, as the tests do); False turns them off.
 
-    graphs: replay each decode step as a CUDA graph (serving/graphs.py; the
-    chunk kernel's route stays eager). None (auto) takes them when the
-    params lie on a CUDA device and the kernels are on; False keeps the
-    eager route; True on the CPU raises ValueError. Both routes run the same
-    step function (`decode_chunk`) and give the same tokens.
+    graphs: replay the prefill and each decode step as CUDA graphs
+    (serving/graphs.py; the chunk kernel's route stays eager). None (auto)
+    takes them when the params lie on a CUDA device and the kernels are on;
+    False keeps the eager route; True on the CPU raises ValueError. Both
+    routes run the same step functions (`_prefill_step`, `decode_chunk`)
+    and give the same tokens. The prefill's graph is keyed as the JAX
+    package keys its jitted prefill: (B, bucketed T, cache length and
+    dtype, sampling, mode, forward_fn's mesh key).
 
-    The cache and the decode state of each batch size are kept across calls
-    (a graph keeps their pointers) and zeroed at the start of each call, and
-    one torch.Generator is reseeded with each call's seed.
+    The cache, the decode state and the prefill's last logits
+    (`prefill_logits[B]`, fp32 [B, vocab]) of each batch size are kept
+    across calls (a graph keeps their pointers), the cache zeroed at the
+    start of each call, and so are the prompt buffers of each (B, T); one
+    torch.Generator is reseeded with each call's seed.
 
     forward_fn: a tensor-parallel forward (parallel/sharded.py
     ShardedForward) over this rank's `params`, as the JAX Generator takes
@@ -242,6 +247,8 @@ class Generator:
         self.rng = torch.Generator(device=self.device)
         self.graph_cache = GraphCache(self.device, self.rng)
         self._decode: dict = {}  # B -> (cache, DecodeState)
+        self.prefill_logits: dict = {}  # B -> fp32 [B, vocab]
+        self._prompts: dict = {}  # (B, T) -> int32 [B * T + B]: tokens, lengths
 
     def graphs_on(self) -> bool:
         """Whether decode steps replay CUDA graphs (see `graphs`)."""
@@ -265,11 +272,48 @@ class Generator:
                                 torch.zeros((B,), dtype=torch.bool, device=dev),
                                 _stop_array((), dev), self.chunk)
             self._decode[B] = entry = (cache, state)
+            self.prefill_logits[B] = torch.zeros((B, self.cfg.vocab_size),
+                                                 dtype=torch.float32, device=dev)
         else:
             entry[0]["k"].zero_()
             entry[0]["v"].zero_()
         entry[1].stop.copy_(_stop_array(stop_ids, self.device))
         return entry
+
+    def _prefill_step(self, tokens: np.ndarray, lens, temperature: float,
+                      top_k: int, top_p: float):
+        """The prefill of [B, T] prompt `tokens` (lengths `lens`) into the
+        B-row cache as one step function over fixed tensors: the prompt
+        buffer of (B, T), filled here by one host-to-device copy, the cache,
+        the decode state (token, done flag, pos) and the last logits, which
+        it writes in place. Returns (fn, key, static)."""
+        B, T = tokens.shape
+        dev = self.device
+        buf = self._prompts.get((B, T))
+        if buf is None:
+            buf = self._prompts[(B, T)] = torch.zeros((B * T + B,),
+                                                      dtype=torch.int32, device=dev)
+        buf.copy_(torch.from_numpy(np.concatenate(
+            [tokens.ravel(), np.asarray(lens, np.int32)])))
+        toks, lens_dev = buf[:B * T].view(B, T), buf[B * T:]
+        cache, state = self._decode[B]
+        logits = self.prefill_logits[B]
+
+        def fn():
+            last, _ = decoder.prefill(self.cfg, self.params, toks, cache,
+                                      prompt_lens=lens_dev, rope=self.rope,
+                                      forward_fn=self.forward_fn)
+            logits.copy_(last)
+            token = sample_token(last, self.rng, temperature, top_k, top_p)
+            state.token.copy_(token)
+            state.done.copy_((token[:, None] == state.stop[None, :]).any(dim=-1))
+            state.pos.copy_(lens_dev)
+
+        key = ("prefill", B, T, self.cache_len, self.cache_dtype, temperature,
+               top_k, top_p, "fast", getattr(self.forward_fn, "key", None))
+        static = (buf, cache["k"], cache["v"], logits, *state.tensors(),
+                  *self.rope)
+        return fn, key, static
 
     def _fused_ok(self, B: int) -> bool:
         """Whether decode takes a megakernel: B = 1, fused weights and a plan
@@ -308,7 +352,7 @@ class Generator:
         on_chunk: optional callback invoked with the raw [B, n] numpy token
         block as each decode chunk lands on the host (tokens after a row's
         stop token repeat; the returned lists are already truncated)."""
-        cfg, dev = self.cfg, self.device
+        cfg = self.cfg
         B = len(prompts)
         lens = [len(p) for p in prompts]
         assert min(lens) >= 1
@@ -323,18 +367,13 @@ class Generator:
         cache, state = self._batch(B, stop_ids)
         gen = self.rng
         gen.manual_seed(seed)
+        graphs = self.graph_cache if self.graphs_on() else None
 
         t0 = time.perf_counter()
-        last_logits, cache = decoder.prefill(
-            cfg, self.params, torch.from_numpy(tokens).to(dev), cache,
-            prompt_lens=torch.tensor(lens, dtype=torch.int32, device=dev),
-            rope=self.rope, forward_fn=self.forward_fn,
-        )
-        token = sample_token(last_logits, gen, temperature, top_k, top_p)
-        state.token.copy_(token)
-        state.done.copy_((token[:, None] == state.stop[None, :]).any(dim=-1))
-        state.pos.copy_(torch.tensor(lens, dtype=torch.int32))
-        first = token.cpu().numpy()  # host copy; also syncs prefill
+        fn, key, static = self._prefill_step(tokens, lens, temperature, top_k,
+                                             top_p)
+        run_once(graphs, key, fn, static, rng=temperature > 0)
+        first = state.token.cpu().numpy()  # host copy; also syncs prefill
         t1 = time.perf_counter()
         if on_chunk is not None:
             on_chunk(first[:, None])
@@ -343,7 +382,6 @@ class Generator:
         out = [[int(first[i])] for i in range(B)]
         max_pos = max(lens)
         fused = self._fused_ok(B)
-        graphs = self.graph_cache if self.graphs_on() else None
         done = state.done
         while budget > 0 and not bool(done.all()):
             steps = min(self.chunk, budget)

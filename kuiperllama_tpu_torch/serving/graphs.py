@@ -1,13 +1,20 @@
-"""CUDA graphs of the decode step: the port's counterpart of the JAX
-package's jitted decode chunk (kuiperllama_tpu/serving/generate.py
-`decode_chunk`, kuiperllama_tpu/models/paged.py `decode_chunk_paged`).
+"""CUDA graphs of the decode step and of the prefills: the port's
+counterpart of the JAX package's jitted decode chunk
+(kuiperllama_tpu/serving/generate.py `decode_chunk`,
+kuiperllama_tpu/models/paged.py `decode_chunk_paged`) and of its jitted
+prefill programs (models/decoder.py `forward`, serving/engine.py
+`_admit_prefill`, models/paged.py `prefill_paged` and
+`prefill_chunk_paged`).
 
 The JAX package compiles a chunk once per static key and dispatches it
 whole. Here the unit is one decode step, captured once per key and replayed
 `steps` times: the key does not depend on `steps` (a Generator run's last
 chunk and the PagedEngine's admit chunks are shorter), capturing stays
 short (a Llama-2-7B layered step is about 2,200 nodes), and one replay per
-step leaves the host out of the step.
+step leaves the host out of the step. A prefill is a step that runs once
+per replay (`run_once`): its inputs sit in a fixed buffer the caller fills
+with one host-to-device copy, and it writes its outputs (the last logits,
+the first token, the done flag) into tensors the caller owns.
 
 `GraphCache.step(key, fn, static)`:
   * a key seen for the first time runs `fn` eagerly, as a real step, on the
@@ -22,12 +29,20 @@ step leaves the host out of the step.
   * a graph keeps the pointers of `static` (the tensors the step reads and
     writes in place) and of the kernels' workspaces
     (ops/kernels/workspace.py). A replay refuses static tensors that moved,
-    and once the workspace epoch has moved the cache drops its graphs and
-    captures each again at its next step (`n_recaptures`);
+    and a graph captured before the workspace epoch moved is captured again
+    at its key's next step, the eager call first (`n_recaptures`); the
+    cache's other graphs stay. (A decode step's first call can grow a
+    megakernel's scratch after the prefill before it was captured: only
+    that prefill's graph is captured again, at the next prefill);
   * a failed capture or replay raises; nothing retries eagerly.
-A cache's graphs share one memory pool. Sampling draws come from the
+A cache's graphs share one memory pool, so no graph may leave an output in
+it: a block freed when its Python reference goes is taken by a later
+capture while the first graph still writes there on every replay. Every
+step writes its results into tensors allocated outside the capture (the
+decode state, the caller's prefill outputs). Sampling draws come from the
 cache's torch.Generator, registered with each graph whose step samples, so
-a seeded run replays the eager route's draws.
+a seeded run replays the eager route's draws. Decode and prefill graphs are
+counted apart (`Counts`).
 """
 
 from __future__ import annotations
@@ -118,14 +133,28 @@ class _Entry:
     ptrs: tuple     # data pointers of the static tensors at capture
     launches: tuple  # per _counters() entry, added by each replay
     epoch: int      # workspace.epoch at capture
+    prefill: bool
+
+
+@dataclass
+class Counts:
+    """One kind of graph's counters: `captures` (every capture),
+    `recaptures` (the captures of a key captured before, after the
+    workspace epoch moved or the cache dropped it), `replays`, and
+    `capture_s` (seconds in captures, the eager first calls not
+    included)."""
+
+    captures: int = 0
+    recaptures: int = 0
+    replays: int = 0
+    capture_s: float = 0.0
 
 
 class GraphCache:
-    """Step graphs of one Generator or engine on `device`, keyed as the JAX
-    package keys its jitted chunk. Counters: `n_captures` (every capture),
-    `n_recaptures` (the captures of a key captured before, after the
-    workspace epoch moved), `capture_s` (seconds in captures, the eager
-    first steps not included) and `n_replays`."""
+    """Step and prefill graphs of one Generator or engine on `device`, keyed
+    as the JAX package keys its jitted programs. `decode` and `prefill` are
+    their `Counts`; `n_captures`, `n_recaptures`, `n_replays` and
+    `capture_s` read the decode ones."""
 
     def __init__(self, device, generator=None):
         self.device = device
@@ -133,32 +162,34 @@ class GraphCache:
         self._graphs: dict = {}
         self._seen: set = set()
         self._pool = self._stream = None
-        self.n_captures = self.n_recaptures = self.n_replays = 0
-        self.capture_s = 0.0
+        self.decode, self.prefill = Counts(), Counts()
+
+    n_captures = property(lambda self: self.decode.captures)
+    n_recaptures = property(lambda self: self.decode.recaptures)
+    n_replays = property(lambda self: self.decode.replays)
+    capture_s = property(lambda self: self.decode.capture_s)
 
     def drop(self):
-        """Forget every graph; the next step of each key captures anew."""
-        self._graphs.clear()
-        self._pool = None
+        """Forget every decode graph (its static tensors were rebound); the
+        next step of each such key captures anew. The prefill graphs stay."""
+        self._graphs = {k: e for k, e in self._graphs.items() if e.prefill}
 
     def pool_bytes(self) -> int:
         return 0 if self._pool is None else STEP_GRAPH.pool_bytes(self._pool)
 
-    def step(self, key, fn, static, rng: bool = False):
-        """One decode step under `key`: a replay of its graph, or, for a new
-        key, `fn()` run eagerly and then captured. static: the tensors `fn`
-        reads and writes in place; rng: whether `fn` draws from the
-        cache's generator."""
+    def step(self, key, fn, static, rng: bool = False, prefill: bool = False):
+        """One step under `key`: a replay of its graph, or, for a new key or
+        one captured before the workspace epoch moved, `fn()` run eagerly
+        and then captured. static: the tensors `fn` reads and writes in
+        place; rng: whether `fn` draws from the cache's generator; prefill:
+        count it as a prefill."""
         entry = self._graphs.get(key)
-        if entry is not None and entry.epoch != workspace.epoch:
-            self.drop()
-            entry = None
-        if entry is None:
-            self._capture(key, fn, static, rng)
+        if entry is None or entry.epoch != workspace.epoch:
+            self._capture(key, fn, static, rng, prefill)
             return
         if tuple(t.data_ptr() for t in static) != entry.ptrs:
-            raise RuntimeError(f"decode graph {key}: a static tensor moved "
-                               "since its capture")
+            raise RuntimeError(f"graph {key}: a static tensor moved since its "
+                               "capture")
         try:
             entry.graph.replay()
         except BaseException:
@@ -166,9 +197,9 @@ class GraphCache:
             raise
         for (obj, attr), n in zip(_counters(), entry.launches):
             setattr(obj, attr, getattr(obj, attr) + n)
-        self.n_replays += 1
+        (self.prefill if prefill else self.decode).replays += 1
 
-    def _capture(self, key, fn, static, rng):
+    def _capture(self, key, fn, static, rng, prefill):
         if self._stream is None:
             self._stream = STEP_GRAPH.new_stream(self.device)
         if self._pool is None:
@@ -189,28 +220,50 @@ class GraphCache:
             launches = tuple(getattr(o, a) - b for (o, a), b in zip(counters, before))
             for (o, a), b in zip(counters, before):
                 setattr(o, a, b)
-        self.capture_s += time.perf_counter() - t0
+        counts = self.prefill if prefill else self.decode
+        counts.capture_s += time.perf_counter() - t0
         if workspace.epoch != epoch:
-            raise RuntimeError(f"decode graph {key}: a workspace grew during "
-                               "its capture, after the eager step had sized it")
+            raise RuntimeError(f"graph {key}: a workspace grew during its "
+                               "capture, after the eager call had sized it")
         self._graphs[key] = _Entry(graph, tuple(t.data_ptr() for t in static),
-                                   launches, epoch)
-        self.n_captures += 1
+                                   launches, epoch, prefill)
+        counts.captures += 1
         if key in self._seen:
-            self.n_recaptures += 1
+            counts.recaptures += 1
         self._seen.add(key)
 
-    def captured(self) -> list:
-        """Per graph: what one replay adds to each count, by name (a
-        kernel's launches; a collective's `.launches` and `.bytes`)."""
+    def captured(self, prefill: bool = False) -> list:
+        """Per decode (or prefill) graph: what one replay adds to each
+        count, by name (a kernel's launches; a collective's `.launches` and
+        `.bytes`)."""
         names = [f"{o.__name__}.{a}" if o in collectives.counted() else o.__name__
                  for o, a in _counters()]
-        return [dict(zip(names, e.launches)) for e in self._graphs.values()]
+        return [dict(zip(names, e.launches)) for e in self._graphs.values()
+                if e.prefill == prefill]
 
     def stats(self) -> dict:
-        return dict(n_captures=self.n_captures, n_recaptures=self.n_recaptures,
-                    capture_s=self.capture_s, n_replays=self.n_replays,
-                    graphs=len(self._graphs))
+        """The decode counters under their names, and the prefill ones
+        beside them (`n_prefill_captures`, ...); `graphs` and
+        `prefill_graphs` count the graphs held."""
+        held = [e.prefill for e in self._graphs.values()]
+        d, p = self.decode, self.prefill
+        return dict(n_captures=d.captures, n_recaptures=d.recaptures,
+                    capture_s=d.capture_s, n_replays=d.replays,
+                    graphs=held.count(False),
+                    n_prefill_captures=p.captures,
+                    n_prefill_recaptures=p.recaptures,
+                    prefill_capture_s=p.capture_s,
+                    n_prefill_replays=p.replays, prefill_graphs=held.count(True))
+
+
+def run_once(graphs, key, fn, static, rng: bool = False):
+    """A prefill: `fn()`, which reads its inputs from fixed buffers and
+    writes its outputs into tensors the caller owns, run eagerly (graphs
+    None) or through `graphs` under `key` with `static` held fixed."""
+    if graphs is None:
+        fn()
+    else:
+        graphs.step(key, fn, static, rng, prefill=True)
 
 
 def run_steps(state, step, steps: int, graphs=None, key=None, static=(),

@@ -1038,6 +1038,126 @@ def test_engine_graphs_equal_eager(dev, cls, sampling):
     assert eng.graph_cache.n_replays == eng.n_decode_steps - eng.graph_cache.n_captures
 
 
+def _strict_replays(cache):
+    """Wrap a graph cache's `step` so that every replay runs under
+    torch.cuda.set_sync_debug_mode("error"): a host sync inside a replayed
+    step raises. A key's first call (eager, then captured) runs as it is:
+    the capture itself synchronises the device."""
+    from kuiperllama_tpu_torch.ops.kernels import workspace
+
+    real = cache.step
+
+    def step(key, *a, **k):
+        entry = cache._graphs.get(key)
+        if entry is None or entry.epoch != workspace.epoch:
+            return real(key, *a, **k)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(key, *a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    cache.step = step
+
+
+# (prompt length, bucket): 32 rows take the GEMM, 200 pad to 256 rows, the
+# dequantized matmul; each bucket is called again so that it replays
+PREFILL_LENS = [32, 30, 200, 190, 32]
+
+
+@pytest.mark.parametrize("route,preset,g", [("layered", "llama2-7b", 256),
+                                            ("small", "tinyllama-1.1b", 256)])
+@pytest.mark.parametrize("sampling", SAMPLINGS)
+def test_prefill_graphs_equal_eager(dev, route, preset, g, sampling):
+    """The Generator's prefill on the graph route: the eager route's first
+    tokens and last logits bit for bit and its launch counts (the GEMM
+    below 256 rows, the GEMV of the B = 1 lm_head row), one capture per
+    bucket, replays without a host sync; then whole generations agree."""
+    from kuiperllama_tpu_torch.serving.generate import Generator
+
+    cfg, params = _graph_model(dev, preset, g)
+    out = {}
+    for graphs in (False, True):
+        gen = Generator(cfg, params, cache_len=512, cache_dtype=torch.bfloat16,
+                        chunk=16, graphs=graphs)
+        if graphs:
+            _strict_replays(gen.graph_cache)
+        rows = []
+        for i, n in enumerate(PREFILL_LENS):
+            prompt = [(7 * i + 3 * j) % 500 + 1 for j in range(n)]
+            before = _launch_counts()
+            ids = gen.generate_ids(prompt, max_new_tokens=1, seed=i, **sampling)[0]
+            torch.cuda.synchronize()
+            rows.append((ids, gen.prefill_logits[1].clone(),
+                         [a - b for a, b in zip(_launch_counts(), before)]))
+        ids = gen.generate_ids(GRAPH_PROMPT, max_new_tokens=40, seed=5, **sampling)[0]
+        out[graphs] = rows, ids
+    for (a_ids, a_logits, a_n), (b_ids, b_logits, b_n) in zip(out[True][0], out[False][0]):
+        assert a_ids == b_ids and a_n == b_n and a_n[0] == 1  # the lm_head GEMV
+        assert torch.equal(a_logits, b_logits)
+    assert out[True][1] == out[False][1]
+    st = gen.graph_cache.stats()
+    # buckets 32 and 256 from the lens, then the generation's 32 again
+    assert (st["n_prefill_captures"], st["prefill_graphs"]) == (
+        2 + st["n_prefill_recaptures"], 2)
+    assert st["n_prefill_replays"] == len(PREFILL_LENS) + 1 - st["n_prefill_captures"]
+
+
+@pytest.mark.parametrize("cls,chunked", [("Engine", False), ("PagedEngine", False),
+                                         ("PagedEngine", True)])
+def test_engine_prefill_graphs_equal_eager(dev, cls, chunked):
+    """The dense Engine's admit prefill (a third admission beside two live
+    slots, whose rows are dropped, then one into a cancelled slot), the
+    PagedEngine's single-shot prefill and a chunked wave of a 200-token
+    prompt in 32-token chunks: the eager route's first tokens, last logits
+    and caches bit for bit, replays without a host sync."""
+    from kuiperllama_tpu_torch.serving import engine
+
+    cfg, params = _graph_model(dev, "tinyllama-1.1b", 256)
+    kw = dict(max_batch=3, max_len=256, cache_dtype=torch.bfloat16, chunk=16)
+    if cls == "PagedEngine":
+        kw.update(page_size=16, prefill_chunk=32 if chunked else 0)
+    prompts = ([list(range(1, 201)), [5, 6, 7]] if chunked else
+               [[(7 * i + j) % 500 + 1 for j in range(10 + i)] for i in range(4)])
+    out = {}
+    for graphs in (False, True):
+        eng = getattr(engine, cls)(cfg, params, graphs=graphs, **kw)
+        if graphs:
+            _strict_replays(eng.graph_cache)
+        reqs = [engine.Request(prompt_ids=p, max_new_tokens=8) for p in prompts]
+        events = []
+        if chunked:
+            for r in reqs:
+                eng.submit(r)
+            eng._start_wave()
+            while eng._wave is not None:
+                eng._advance_wave()
+            events.append((eng.prefill_first[:2].clone(), eng.prefill_logits[:2].clone()))
+        else:
+            for i, batch in enumerate((reqs[:2], reqs[2:3], reqs[3:])):
+                if i == 2:
+                    eng.cancel(reqs[0].request_id)
+                for r in batch:
+                    eng.submit(r)
+                eng._admit()
+                n = len(batch)
+                events.append((eng.prefill_first[:n].clone(),
+                               eng.prefill_logits[:n].clone()))
+        torch.cuda.synchronize()
+        out[graphs] = events, [t.clone() for t in eng._cache_tensors()], eng.graph_cache
+    for (a_first, a_logits), (b_first, b_logits) in zip(out[True][0], out[False][0]):
+        assert torch.equal(a_first, b_first) and torch.equal(a_logits, b_logits)
+    # the paged pools' page 0 is the garbage page: padding writes land there
+    # in an undefined order
+    sink = 1 if cls == "PagedEngine" else 0
+    assert all(torch.equal(a[:, sink:], b[:, sink:])
+               for a, b in zip(out[True][1], out[False][1]))
+    st = out[True][2].stats()
+    # one 16-row bucket for the three admissions; the wave's n_hist buckets
+    # 0, 2, 4, 8, 8, 16, 16
+    assert st["n_prefill_replays"] == 2 and st["n_prefill_recaptures"] == 0
+
+
 def test_sampling_race_equals_multinomial(dev):
     """The sampler's exponential race draws what torch.multinomial(probs, 1)
     draws from the same generator state, on the card as on the CPU."""
