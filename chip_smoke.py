@@ -181,6 +181,29 @@ last line:
      against the analytic bill (2 L all-reduces and 1 all-gather a tp
      decode step; L and 1 + L under seqpar), exact launches per rank of
      quant_gemv, quant_gemm and paged_attention, and peak memory per rank.
+ 16. server across ranks (inside phase 15, on its engines and its pool of
+     two gloo ranks): every rank wraps its PagedEngine(mesh=) in an
+     InferenceServer; rank 0 serves HTTP on 127.0.0.1 and broadcasts one
+     control message a turn, rank 1 follows. Each server takes SRV_REQUESTS
+     concurrent /generate requests of 32 + 32 tokens (queued in order before
+     it starts: one wave), an invalid request (400) and a long request whose
+     timeout passes (cancelled on every rank, its pages back): (a) phase 15
+     (b)'s tp = 2 Llama-2-7B engine, (b) phase 15 (c)'s world of one NCCL
+     rank, graphs on (no peer: no message), (c) phase 15 (d)'s seqpar sp = 2
+     Qwen2.5-0.5B engine with SRV_SEQPAR_REQUESTS requests. Each beside a
+     single-device server on the same weights: both ranks gave the same
+     requests the same ids and tokens, equal to one device's up to a logit
+     tie (PAR_TIE_TOL; (b) bit-identical), launches per rank exact against
+     the steps and prefills it ran; tokens/s, TTFT p50/p99 (rank 0's
+     /metrics) and the seconds inside the control broadcasts per rank. Then
+     the parallel tools: seqpar_bytes against the committed
+     SEQPAR_r05.json, scaling at a world of one NCCL rank (its entry point)
+     and on the two gloo ranks, the counted bill verified.
+ native (after phase 11): the native runtime (runtime/native.py) built by
+     g++ from the checkout; the SPM tokenizer's merge_engine is "native" and
+     equal to its Python merge on NATIVE_TEXTS random texts; each committed
+     fixture's native header equals binfmt's (the v3 Qwen2 file refused, as
+     by the JAX copy).
 Then one {"kernels": [...]} line (each kernel's launches on every path in
 `launches_by_path`, the new phases' and the bench children's included), the
 nvidia-smi line of the card, and the last line {"ok": true, "device": {...}}.
@@ -340,6 +363,18 @@ PAR_EXACT_TOL = 1e-4
 # fp32 pool (dense fp32 matmuls, TF32 off): tokens equal, prefill logits
 # within PAR_EXACT_TOL
 PAR_EXACT_REQUESTS = 4
+# phase 16, the server across ranks: SRV_REQUESTS requests of ENGINE_PROMPT
+# + SRV_NEW tokens posted at once to rank 0's HTTP front and queued before
+# its server starts (one admission wave of the 8 slots: a fixed batch, so
+# the single-device server's tokens are comparable), SRV_SEQPAR_REQUESTS on
+# the seqpar server; then a request of SRV_LONG_NEW tokens (more than any
+# route decodes in its SRV_TIMEOUT_S) times out, in the queue behind the
+# wave or mid-decode, and is cancelled
+SRV_REQUESTS, SRV_SEQPAR_REQUESTS, SRV_NEW = 8, 4, 32
+SRV_TIMEOUT_S = 1.0
+SRV_LONG_NEW = CACHE_LEN - ENGINE_PROMPT - 1
+# the native runtime's merge against the Python oracle: random texts
+NATIVE_TEXTS = 25
 # Llama-2-7B main-path projections: (name, K, N, launches per decode token)
 GEMV_SHAPES = [("wqkv", 4096, 12288, 32), ("wo", 4096, 4096, 32),
                ("w13", 4096, 22016, 32), ("w2", 11008, 4096, 32),
@@ -3066,6 +3101,8 @@ def phase_parallel(dev):
     exact_ids, exact_logits = par_exact_run(cfg, exact.params, prompt, dev)
     del exact
     eng_single, eng = par_single_engine(cfg, params, False, dev)
+    # phase 16's single-device server, on the same engine
+    srv_single = srv_drive(eng, SRV_REQUESTS, dev)
     del eng
     torch.cuda.empty_cache()
 
@@ -3079,6 +3116,8 @@ def phase_parallel(dev):
         graphs = graph_stats(eng.graph_cache)
         captured = eng.graph_cache.captured()
         captured_prefill = eng.graph_cache.captured(prefill=True)
+        # phase 16 (b): the same engine behind the server
+        srv_b = srv_drive(eng, SRV_REQUESTS, dev)
         del eng
     finally:
         dist.destroy_process_group()
@@ -3120,6 +3159,7 @@ def phase_parallel(dev):
                              "single-device engine")
     launches["parallel c nccl world 1"] = c["launches"]
     del unfused
+    launches.update(srv_nccl_row(cfg, srv_b, srv_single))
 
     with RankPool(PAR_RANKS, backend="gloo", init_method=f"file://{tmp}/gloo",
                   timeout_s=PAR_TIMEOUT_S, device=str(dev), threads=2) as pool:
@@ -3184,6 +3224,11 @@ def phase_parallel(dev):
         b_ok = par_engine_row(cfg, params, "b", outs, eng_single, dev, False)
         for r, o in enumerate(outs):
             launches[f"parallel b rank {r}"] = o["launches"]
+        # phase 16 (a): the (b) engine behind the server on both ranks
+        outs = pool.run(srv_rank, False)
+        srv_ok = srv_row("a", cfg, params, outs, srv_single, dev, False)
+        for r, o in enumerate(outs):
+            launches[f"server ranks a rank {r}"] = o["launches"]
         del params
         torch.cuda.empty_cache()
 
@@ -3191,6 +3236,7 @@ def phase_parallel(dev):
         qcfg, qparams = par_model(dev, True)
         qparams = fuse_params(qparams)
         q_single, eng = par_single_engine(qcfg, qparams, True, dev)
+        q_srv_single = srv_drive(eng, SRV_SEQPAR_REQUESTS, dev)
         del eng
         q_single["exact_ids"], q_single["exact_logits"] = par_exact_engine(
             qcfg, qparams, dev)
@@ -3198,10 +3244,19 @@ def phase_parallel(dev):
         d_ok = par_engine_row(qcfg, qparams, "d", outs, q_single, dev, True)
         for r, o in enumerate(outs):
             launches[f"parallel d rank {r}"] = o["launches"]
+        # phase 16 (c): the (d) engine behind the server on both ranks
+        outs = pool.run(srv_rank, True)
+        srv_ok = srv_row("c", qcfg, qparams, outs, q_srv_single, dev, True) and srv_ok
+        for r, o in enumerate(outs):
+            launches[f"server ranks c rank {r}"] = o["launches"]
         del qparams
+        torch.cuda.empty_cache()
+        phase_parallel_tools(dev, pool)
     torch.cuda.empty_cache()
     if not (b_ok and d_ok):
         raise AssertionError("a parallel engine row failed its checks")
+    if not srv_ok:
+        raise AssertionError("a server_ranks row failed its checks")
     return launches
 
 
@@ -3283,6 +3338,361 @@ def par_engine_row(cfg, params, row, outs, single, dev, seqpar):
               decode_chunks_checked=len(o0["chunks"]), decode_collectives_ok=chunks_ok,
               single_launches=single["launches"], launches_expected=want_l,
               **par_rank_fields(outs), ok=ok, card=CARD))
+    return ok
+
+
+def srv_prompts(vocab, n):
+    return [par_prompt(i, ENGINE_PROMPT, vocab) for i in range(n)]
+
+
+def srv_drive(eng, n, dev):
+    """Phase 16 on one rank (or one process): an InferenceServer over `eng`.
+    A follower follows until rank 0's stop flag. The leader serves HTTP on
+    127.0.0.1: n requests of srv_prompts posted together, queued in order
+    before the server starts (one wave), then, while they decode, an invalid
+    request (400) and a long one that times out (504; its cancel reaches
+    every rank), then /healthz and /metrics once the cancel is applied, and
+    stop. Launch counts, collectives and
+    the engine's step counters are zeroed just before the server starts and
+    read after its loop ends. Returns the requests the engine was given
+    (id, tokens, finished), in order, with the counts and times."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from kuiperllama_tpu_torch.parallel import collectives
+    from kuiperllama_tpu_torch.serving.server import InferenceServer, make_http_server
+
+    submitted, submit = [], eng.submit
+
+    def record(req):
+        submitted.append(req)
+        submit(req)
+
+    eng.submit = record
+    srv = InferenceServer(eng)
+    timeout_s = srv.timeout_s
+    free0 = eng.allocator.n_free_pages
+    torch.cuda.synchronize()
+    eng.n_decode_steps = eng.n_prefill_calls = 0
+    zero_launches()
+    collectives.reset()
+    out = dict(leader=srv.leader)
+    if not srv.leader:
+        srv.start()
+        out["ended"] = srv.join(PAR_TIMEOUT_S)
+    else:
+        httpd = make_http_server(srv, "127.0.0.1", 0)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+
+        def call(path, body=None):
+            data = None if body is None else json.dumps(body).encode()
+            try:
+                with urllib.request.urlopen(urllib.request.Request(base + path, data=data),
+                                            timeout=PAR_TIMEOUT_S) as resp:
+                    return resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        prompts = srv_prompts(eng.cfg.vocab_size, n)
+        answers, answered = [None] * n, [0.0] * n
+
+        def client(i):
+            answers[i] = call("/generate", {"prompt_ids": prompts[i],
+                                            "max_new_tokens": SRV_NEW})
+            answered[i] = time.perf_counter()
+
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+        try:
+            # in flight together, queued in prompt order: one client starts
+            # once the one before it is queued
+            for i, c in enumerate(clients):
+                c.start()
+                end = time.perf_counter() + 60
+                while srv._q.qsize() < i + 1 and time.perf_counter() < end:
+                    time.sleep(0.001)
+            t0 = time.perf_counter()
+            srv.start()
+            bad = call("/generate", {"prompt_ids": [], "max_new_tokens": SRV_NEW})
+            # the wave's requests hold the default timeout; this one waits
+            # SRV_TIMEOUT_S (the server's timeout when it is posted)
+            srv.timeout_s = SRV_TIMEOUT_S
+            late = call("/generate", {"prompt_ids": prompts[0],
+                                      "max_new_tokens": SRV_LONG_NEW})
+            srv.timeout_s = timeout_s
+            for c in clients:
+                c.join(PAR_TIMEOUT_S)
+            wall = max(answered) - t0  # the wave's: start to its last answer
+            end = time.perf_counter() + 60
+            while (not srv._q.empty() or not srv._cancel_q.empty() or eng.has_work) \
+                    and time.perf_counter() < end:
+                time.sleep(0.005)
+            health = call("/healthz")
+            metrics = call("/metrics")[1]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            srv.stop()
+        out.update(ended=srv.join(0), codes=[a[0] if a else None for a in answers],
+                   answers=[a[1].get("ids") if a else None for a in answers],
+                   bad=bad, late=late, wall_s=wall, health=health,
+                   metrics=metrics)
+    torch.cuda.synchronize()
+    eng.submit = submit
+    out.update(error=None if srv.error is None else repr(srv.error),
+               launches=read_launches(), bill=collectives.bill(),
+               steps=eng.n_decode_steps, prefills=eng.n_prefill_calls,
+               free_start=free0, free_end=eng.allocator.n_free_pages,
+               submitted=[(r.request_id, list(r.out_ids), r.finished) for r in submitted],
+               control_messages=0 if srv.control is None else srv.control.messages,
+               control_s=0.0 if srv.control is None else srv.control.seconds,
+               graphs=graph_stats(eng.graph_cache))
+    return out
+
+
+def srv_rank(seqpar):
+    """Phase 16 (a) (Llama-2-7B, tp = 2) or (c) (Qwen2.5-0.5B, seqpar sp = 2)
+    on one rank: PagedEngine(mesh=, seqpar=) at phase 15's settings behind
+    an InferenceServer (srv_drive)."""
+    import torch
+
+    from kuiperllama_tpu_torch.parallel.mesh import make_mesh
+    from kuiperllama_tpu_torch.serving.engine import PagedEngine
+
+    dev = par_device()
+    mesh = make_mesh(1, PAR_RANKS)
+    cfg, params = par_model(dev, seqpar)
+    eng = PagedEngine(cfg, params, mesh=mesh, seqpar=seqpar, cache_dtype=torch.bfloat16,
+                      **par_engine_kw(seqpar))
+    del params
+    out = srv_drive(eng, SRV_SEQPAR_REQUESTS if seqpar else SRV_REQUESTS, dev)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def srv_launches(cfg, out, seqpar):
+    """The launches a server run must count from its steps and prefills:
+    paged attention n_layers a decode step; with INT8 weights the GEMM at
+    the engine's 8 rows each step (4 L + 1), and a 256-row prefill of
+    32-token prompts only its lm_head (the rest dequantized, ops/linear.py)."""
+    from kuiperllama_tpu_torch.ops.linear import PREFILL_DEQUANT_ROWS
+    from kuiperllama_tpu_torch.serving.generate import _bucket
+
+    L, steps = cfg.n_layers, out["steps"]
+    if seqpar:
+        return dict(NO_LAUNCHES, paged_attention=L * steps)
+    rows = ENGINE_SLOTS * _bucket(ENGINE_PROMPT)
+    per_prefill = 1 if rows >= PREFILL_DEQUANT_ROWS else 4 * L + 1
+    return dict(NO_LAUNCHES, paged_attention=L * steps,
+                quant_gemm=steps * (4 * L + 1) + out["prefills"] * per_prefill)
+
+
+def srv_served_ok(out, n):
+    """The leader's checks: every answer 200 and the tokens its engine
+    made, the 400, the 504, the pages back, /healthz ok."""
+    given = [ids for _, ids, _ in out["submitted"]]
+    return (out["ended"] and out["error"] is None and out["codes"] == [200] * n
+            and out["answers"] == given[:n] and len(given) == n + 1
+            and not out["submitted"][n][2] and out["bad"][0] == 400
+            and out["late"][0] == 504
+            and out["free_end"] == out["free_start"] and out["health"][0] == 200
+            and out["metrics"]["served"] == n)
+
+
+def srv_fields(out):
+    """A server run's times: tokens/s over the wave, TTFT p50 and p99 (rank
+    0's /metrics), the seconds inside the control broadcasts."""
+    m = out["metrics"]
+    return dict(tokens_per_s=sum(len(a) for a in out["answers"]) / out["wall_s"],
+                wave_wall_s=out["wall_s"], ttft_ms_p50=m["ttft_s_p50"] * 1e3,
+                ttft_ms_p99=m["ttft_s_p99"] * 1e3)
+
+
+def phase_parallel_tools(dev, pool):
+    """The two parallel tools on the card. seqpar_bytes: its byte and page
+    fields equal the committed SEQPAR_r05.json (the JAX tool's). scaling: a
+    world of one NCCL rank through its entry point (its own pool; the HBM
+    term from roofline.probe_read), then phase 15's two gloo ranks on
+    cuda:0 through `run`: the counted bill verified and every row measured.
+    Their launches count on no path (plain torch ops at the tiny config)."""
+    import io
+
+    from kuiperllama_tpu_torch.tools import scaling, seqpar_bytes
+
+    def exact(out):
+        return [{k: v for k, v in r.items() if k != "build_work_lists_host_ms"}
+                for r in out["rows"]]
+
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        sb = seqpar_bytes.main([])
+        t0 = time.perf_counter()
+        nccl = scaling.main(["--backend", "nccl", "--world", "1", "--device", "cuda"])
+        nccl_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gloo = scaling.run(pool, dev, scaling.tiny_cfg(), nccl["hbm_GBps"],
+                           nccl["hbm_source"])
+        gloo_s = time.perf_counter() - t0
+    with open(os.path.join(HERE, "SEQPAR_r05.json")) as f:
+        committed = json.load(f)
+    sb_ok = exact(sb) == exact(committed)
+    emit(dict(phase="tools", tool="seqpar_bytes", equals_committed=sb_ok,
+              max_shard_fraction=[r["max_shard_fraction"] for r in sb["rows"]],
+              build_work_lists_host_ms=[r["build_work_lists_host_ms"] for r in sb["rows"]],
+              ok=sb_ok, card=CARD))
+    ok = sb_ok
+    for out, sec in ((nccl, nccl_s), (gloo, gloo_s)):
+        good = (out["counted_collectives"]["verified"] and bool(out["rows"])
+                and all(r["measured_step_ms"] > 0 for r in out["rows"]))
+        emit(dict(phase="tools", tool="scaling", backend=out["backend"], world=out["world"],
+                  seconds=sec, counted_collectives=out["counted_collectives"],
+                  hbm_GBps=out["hbm_GBps"], hbm_source=out["hbm_source"],
+                  link_GBps=out["link_GBps"], rows=out["rows"], ok=good, card=CARD))
+        ok = ok and good
+    if not ok:
+        raise AssertionError("a parallel tool failed its checks")
+
+
+def phase_native(dev):
+    """The native runtime (kuiperllama_tpu_torch/runtime): g++ builds the
+    loader and the merge engine from the checkout; the SPM tokenizer takes
+    the native merge, equal to its Python merge on NATIVE_TEXTS random
+    texts; the native header of each committed fixture equals the header
+    checkpoint/binfmt.py reads (the v3 Qwen2 file, whose body carries
+    biases, is refused by the native loader as by the JAX copy, and read by
+    binfmt)."""
+    import glob
+
+    import numpy as np
+
+    from kuiperllama_tpu_torch.checkpoint.binfmt import load_bin
+    from kuiperllama_tpu_torch.runtime import native
+    from kuiperllama_tpu_torch.tokenizer.spm import SentencePieceTokenizer
+
+    t0 = time.perf_counter()
+    built = native.available()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    alphabet = list("abcd\u2581")
+    pieces, seen = ["<unk>", "<s>", "</s>"] + alphabet, set(alphabet)
+    for n in (2, 3, 4):
+        for _ in range(40):
+            cand = "".join(rng.choice(alphabet) for _ in range(n))
+            if cand not in seen:
+                seen.add(cand)
+                pieces.append(cand)
+    scores = [0.0] * 3 + list(rng.uniform(-10, 0, len(pieces) - 3))
+    tok = SentencePieceTokenizer(pieces, scores, [2, 3, 3] + [1] * (len(pieces) - 3))
+    merges_equal = True
+    for _ in range(NATIVE_TEXTS):
+        text = "".join(rng.choice(list("abcd ")) for _ in range(int(rng.integers(1, 60))))
+        prep = text.replace(" ", "\u2581")
+        prep = prep if prep.startswith("\u2581") else "\u2581" + prep
+        merges_equal &= tok.encode(text, bos=False) == tok._merge_py(tok._symbols_of(prep))
+    headers = {}
+    for path in sorted(glob.glob(os.path.join(HERE, "checkpoints", "*", "*.bin"))):
+        rel = os.path.relpath(path, HERE)
+        family = "qwen2" if "qwen2" in rel else "llama2"
+        cfg, _ = load_bin(path, family=family)
+        try:
+            h = native.parse_header(path)
+        except ValueError:
+            headers[rel] = "refused"
+            continue
+        headers[rel] = (
+            (h.dim, h.hidden_dim, h.n_layers, h.n_heads, h.n_kv_heads, h.vocab_size,
+             h.seq_len, bool(h.tied), h.group_size or None)
+            == (cfg.dim, cfg.hidden_dim, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+                cfg.vocab_size, cfg.seq_len, cfg.tied_embedding, cfg.group_size))
+    refused = [k for k, v in headers.items() if v == "refused"]
+    ok = (built and tok.merge_engine == "native" and merges_equal
+          and all(v is True for k, v in headers.items() if k not in refused)
+          and refused == ["checkpoints/tinychar_qwen2/tinychar.q8.bin"]
+          and len(headers) == 6)
+    emit(dict(phase="native", built=built, build_s=build_s,
+              libraries=[native.lib_path(native.SRC_DIR / f"{n}.cpp").name
+                         for n in ("loader", "spm_bpe")],
+              merge_engine=tok.merge_engine, texts=NATIVE_TEXTS,
+              native_merge_equals_python=merges_equal, headers_equal_binfmt=headers,
+              ok=ok, card=CARD))
+    if not ok:
+        raise AssertionError("the native runtime failed its checks")
+
+
+def srv_nccl_row(cfg, srv, single):
+    """Phase 16 (b): the server over a world of one NCCL rank (graphs on;
+    no peer, so no control message) answers tokens bit-identical to the
+    single-device server's; both serve as srv_served_ok says, with exact
+    launches. Returns the two paths' launches."""
+    n = SRV_REQUESTS
+    want = [srv_launches(cfg, o, False) for o in (srv, single)]
+    same = srv["answers"] == single["answers"]
+    ok = (same and srv_served_ok(srv, n) and srv_served_ok(single, n)
+          and srv["launches"] == want[0] and single["launches"] == want[1]
+          and srv["control_messages"] == 0 and srv["graphs"]["n_replays"] >= 1)
+    emit(dict(phase="server_ranks", row="b",
+              what="InferenceServer over PagedEngine(mesh=) on a world of 1 NCCL rank, "
+                   "graphs", model="llama2-7b", group_size=PAR_GROUP, backend="nccl",
+              world=1, requests=n, tokens_bit_identical_to_single=same,
+              invalid_status=srv["bad"][0], timed_out_status=srv["late"][0],
+              free_pages_start_end=(srv["free_start"], srv["free_end"]),
+              **srv_fields(srv), single=srv_fields(single),
+              control_messages=srv["control_messages"], graphs=srv["graphs"],
+              decode_steps=srv["steps"], prefill_calls=srv["prefills"],
+              launches=srv["launches"], single_launches=single["launches"],
+              launches_expected=want[0], ok=ok, card=CARD))
+    if not ok:
+        raise AssertionError("row (b): the world-1 NCCL server differs from the "
+                             "single-device server")
+    return {"server ranks b nccl world 1": srv["launches"],
+            "server ranks b single device": single["launches"]}
+
+
+def srv_row(row, cfg, params, outs, single, dev, seqpar):
+    """Phase 16 (a) and (c): both ranks gave the same requests the same ids
+    and tokens, equal to the single-device server's up to a logit tie at
+    the first difference; rank 0 answered as srv_served_ok says; every
+    rank's launches exact and its pages back."""
+    n = SRV_SEQPAR_REQUESTS if seqpar else SRV_REQUESTS
+    lead, follow = outs
+    prompts = srv_prompts(cfg.vocab_size, n)
+    agree = par_agreement(cfg, params, prompts, single["answers"],
+                          [o["answers"] if o["leader"] else
+                           [ids for _, ids, _ in o["submitted"][:n]] for o in outs], dev)
+    want = [srv_launches(cfg, o, seqpar) for o in outs]
+    same = follow["submitted"] == lead["submitted"]
+    ok = (agree["tokens_ok"] and same and srv_served_ok(lead, n) and follow["ended"]
+          and follow["error"] is None and follow["free_end"] == follow["free_start"]
+          and all(o["launches"] == w for o, w in zip(outs, want))
+          and (lead["steps"], lead["prefills"]) == (follow["steps"], follow["prefills"]))
+    emit(dict(phase="server_ranks", row=row,
+              what=("InferenceServer over PagedEngine(mesh=, seqpar=True), sp = 2" if seqpar
+                    else "InferenceServer over PagedEngine(mesh=), tp = 2"),
+              model="qwen2.5-0.5b" if seqpar else "llama2-7b",
+              weights="bf16" if seqpar else f"int8 g {PAR_GROUP}, bf16 scales",
+              backend="gloo", ranks=PAR_RANKS, device="cuda:0 for every rank",
+              route="eager (gloo collectives cannot be captured)", slots=ENGINE_SLOTS,
+              max_len=CACHE_LEN, chunk=ENGINE_CHUNK, page_size=ENGINE_PS, requests=n,
+              prompt_len=ENGINE_PROMPT, new_tokens=SRV_NEW, ranks_gave_same_requests=same,
+              request_ids=[r for r, _, _ in lead["submitted"]], **agree,
+              invalid_status=lead["bad"][0], timed_out_status=lead["late"][0],
+              timed_out_request_cancelled_on_every_rank=all(
+                  not o["submitted"][n][2] for o in outs),
+              free_pages_start_end_by_rank=[(o["free_start"], o["free_end"]) for o in outs],
+              healthz=lead["health"][1], **srv_fields(lead),
+              single_tokens_per_s=srv_fields(single)["tokens_per_s"],
+              single_ttft_ms_p50=srv_fields(single)["ttft_ms_p50"],
+              control_messages_by_rank=[o["control_messages"] for o in outs],
+              control_seconds_by_rank=[o["control_s"] for o in outs],
+              collective_seconds_by_rank=[sum(e["seconds"] for e in o["bill"].values())
+                                          for o in outs],
+              decode_steps=lead["steps"], prefill_calls=lead["prefills"],
+              launches_by_rank=[o["launches"] for o in outs], launches_expected=want,
+              ok=ok, card=CARD))
     return ok
 
 
@@ -3485,6 +3895,7 @@ def main() -> int:
     launches["engine tinyllama-1.1b"], _, _ = phase_engine_main_path(
         dev, "tinyllama-1.1b", "tinyllama-1.1b", prefill_chunk=256, long_prompt=768)
     phase_server(dev, fixture_cfg, fixture_params, fixture_tokens)
+    phase_native(dev)
     launches["ppl"] = phase_ppl(dev)
     launches["hf qwen2.5-0.5b"] = phase_hf(dev)
     launches.update(phase_bench(dev))

@@ -24,15 +24,22 @@ import torch.multiprocessing as mp
 
 from .mesh import initialize_distributed
 
+# how long the ranks may take to spawn and import, each
+_START_S = 120.0
+
 
 def _serve(rank, world, backend, init_method, timeout_s, device, threads, tasks,
-           results):
+           results, started):
     import torch.distributed as dist
 
     try:
         torch.set_num_threads(threads)
         if device is not None and torch.device(device).type == "cuda":
             torch.cuda.set_device(torch.device(device))
+        # every rank has started before any joins the group: the group's
+        # timeout (its rendezvous too) then bounds the ranks' skew, not
+        # how long each took to spawn
+        started.wait(_START_S)
         initialize_distributed(init_method, world, rank, backend=backend,
                                timeout_s=timeout_s)
     except BaseException:
@@ -66,24 +73,25 @@ class RankPool:
         self.world, self.timeout_s = world, timeout_s
         self._tasks = [ctx.Queue() for _ in range(world)]
         self._results = ctx.Queue()
+        started = ctx.Barrier(world)
         self.procs = [ctx.Process(target=_serve, daemon=True,
                                   args=(r, world, backend, init_method, timeout_s,
                                         device, threads, self._tasks[r],
-                                        self._results))
+                                        self._results, started))
                       for r in range(world)]
         for p in self.procs:
             p.start()
         try:
-            self._collect("joining the group")
+            self._collect("joining the group", _START_S + timeout_s)
         except BaseException:
             self.close()
             raise
 
-    def _collect(self, what: str) -> list:
+    def _collect(self, what: str, wait_s: float) -> list:
         out, errors = {}, {}
         while len(out) + len(errors) < self.world:
             try:
-                rank, ok, value = self._results.get(timeout=self.timeout_s + 30)
+                rank, ok, value = self._results.get(timeout=wait_s)
             except queue.Empty:
                 dead = [r for r, p in enumerate(self.procs) if not p.is_alive()]
                 raise RuntimeError(f"RankPool: no answer from every rank while "
@@ -101,7 +109,8 @@ class RankPool:
         """fn(*args) on every rank; the ranks' return values by rank."""
         for q in self._tasks:
             q.put((fn, args))
-        return self._collect(f"running {getattr(fn, '__name__', fn)}")
+        return self._collect(f"running {getattr(fn, '__name__', fn)}",
+                             self.timeout_s + 30)
 
     def close(self):
         for q, p in zip(self._tasks, self.procs):

@@ -24,6 +24,10 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
+# initialize_distributed's timeout, which make_mesh gives every group it
+# makes (None: new_group's own default)
+_group_timeout: Optional[datetime.timedelta] = None
+
 
 @dataclass
 class Mesh:
@@ -31,7 +35,11 @@ class Mesh:
 
     model_group / data_group: the process groups of this rank's row and
     column (None for a one-rank mesh built without a process group: its
-    collectives are the identity and issue nothing)."""
+    collectives are the identity and issue nothing). control_group: a gloo
+    group over the model group's ranks for host-side messages (the
+    multi-rank server's, serving/server.py), kept off the NCCL model group
+    whose collectives the CUDA graphs capture; None where the model axis
+    has one rank and there is no peer to tell."""
 
     dp: int
     tp: int
@@ -39,6 +47,7 @@ class Mesh:
     tp_rank: int = 0
     model_group: Optional[object] = None
     data_group: Optional[object] = None
+    control_group: Optional[object] = None
 
     @property
     def shape(self) -> dict:
@@ -71,7 +80,11 @@ def make_mesh(dp: int = 1, tp: Optional[int] = None) -> Optional[Mesh]:
     rank of the group must call it, in the same order as its other group
     creations; a rank beyond dp * tp gets None. The model axis always
     issues its collectives, a one-rank one included; the data axis issues
-    none."""
+    none. Every group bounds its collectives by initialize_distributed's
+    `timeout_s`, so a rank that stops answering fails its peers'
+    collectives within it (new_group alone would give each the backend's
+    default, 10 or 30 minutes; a group joined without
+    initialize_distributed keeps that default)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group; call "
                            "initialize_distributed first (or single_device_mesh)")
@@ -82,15 +95,17 @@ def make_mesh(dp: int = 1, tp: Optional[int] = None) -> Optional[Mesh]:
         tp = world // dp
     if dp * tp > world:
         raise ValueError(f"make_mesh: dp {dp} x tp {tp} > world size {world}")
-    model_groups = [dist.new_group([d * tp + t for t in range(tp)])
-                    for d in range(dp)]
-    data_groups = [dist.new_group([d * tp + t for d in range(dp)])
+    rows = [[d * tp + t for t in range(tp)] for d in range(dp)]
+    model_groups = [dist.new_group(r, timeout=_group_timeout) for r in rows]
+    data_groups = [dist.new_group([d * tp + t for d in range(dp)], timeout=_group_timeout)
                    for t in range(tp)]
+    control_groups = [dist.new_group(r, timeout=_group_timeout, backend="gloo") if tp > 1
+                      else None for r in rows]
     if rank >= dp * tp:
         return None
     d, t = divmod(rank, tp)
     return Mesh(dp=dp, tp=tp, dp_rank=d, tp_rank=t, model_group=model_groups[d],
-                data_group=data_groups[t])
+                data_group=data_groups[t], control_group=control_groups[d])
 
 
 def single_device_mesh() -> Mesh:
@@ -106,10 +121,13 @@ def initialize_distributed(coordinator: str, num_processes: int, process_id: int
     torch init method ("tcp://host:port", "file:///path") or a bare
     "host:port", read as tcp. The backend ("nccl" or "gloo") is the
     caller's choice; nothing here picks one. `timeout_s` bounds every
-    collective of the group, so a rank that hangs fails its peers."""
+    collective of the group, and of the groups make_mesh makes, so a rank
+    that hangs fails its peers."""
+    global _group_timeout
     if "://" not in coordinator:
         coordinator = f"tcp://{coordinator}"
     kw = {} if device_id is None else dict(device_id=device_id)
+    _group_timeout = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(backend=backend, init_method=coordinator,
                             world_size=num_processes, rank=process_id,
-                            timeout=datetime.timedelta(seconds=timeout_s), **kw)
+                            timeout=_group_timeout, **kw)

@@ -22,6 +22,41 @@ Usage:
       --tokenizer tok.model --family llama2 --port 8000 [--device cpu]
 or in-process:
   srv = InferenceServer(engine, tokenizer); srv.start(); srv.submit(...)
+
+Across ranks: the JAX package's one controller drives a sharded engine from
+one server thread. Here every rank of a PagedEngine(mesh=) is a process, so
+every rank wraps its engine in an InferenceServer. Rank 0 of the model
+group (the leader) is the server above; on every other rank (a follower)
+start() runs a loop that takes no submissions. On each turn of its loop the
+leader broadcasts one control message on the mesh's gloo control group,
+whether it has work or is idle: the requests it took from its queue, in
+order, the request ids to cancel, and a stop flag. Every rank then applies
+the same submissions, then the same cancels, and steps if it has work, so
+every rank runs the same schedule and meets its peers in the same
+collectives. Where trouble lies:
+  1. request ids: a follower submits the leader's requests under the
+     leader's ids (Request.request_id counts per process), so a cancel
+     names the same request on every rank;
+  2. the channel: the messages travel on Mesh.control_group (gloo, made by
+     make_mesh on every rank at one point), never on an NCCL model group,
+     whose object broadcast would sync the device beside the captured
+     graphs; a one-rank model axis has no such group and sends nothing;
+  3. an idle server: the group's timeout bounds every collective, so the
+     leader sends a message on every idle poll (poll_idle_s), and a
+     follower never waits longer than that plus a step;
+  4. the clock: a timeout is decided on the leader alone and reaches the
+     followers as a cancel; validation (engine.can_hold included) runs on
+     the leader before queueing; the engine's schedule reads no clock (it
+     records submit, first-token and finish times, and Request.finished
+     asks only whether a finish was recorded);
+  5. failure and stop: a step that raises ends that rank's loop. Over a
+     gloo model group its peers fail in their next collective within the
+     group timeout, and the leader then fails every waiting request with
+     EngineFailed. Over an NCCL model group this is untested (no run has
+     had NCCL ranks on two cards): NCCL's watchdog ends a process whose
+     collective times out rather than raising, and a collective replayed
+     in a CUDA graph is not bounded by the timeout. stop() on the leader
+     sends the stop flag, and the followers return.
 """
 
 from __future__ import annotations
@@ -42,14 +77,45 @@ class EngineFailed(RuntimeError):
     """The engine thread died; every waiting and later request fails."""
 
 
+class _Control:
+    """The leader's control messages to the followers of its model group:
+    one broadcast_object_list on the gloo control group per turn. Counts the
+    messages and the host seconds inside the broadcasts."""
+
+    def __init__(self, group):
+        import torch.distributed as dist
+
+        self.group = group
+        self.src = dist.get_global_rank(group, 0)
+        self.messages = 0
+        self.seconds = 0.0
+
+    def exchange(self, msg=None):
+        """The leader's `msg`, on every rank (the leader passes it)."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        box = [msg]
+        dist.broadcast_object_list(box, src=self.src, group=self.group)
+        self.messages += 1
+        self.seconds += time.perf_counter() - t0
+        return box[0]
+
+
 class InferenceServer:
     """Engine-thread wrapper: HTTP (or any) threads submit requests and
     block on a per-request event; one loop thread owns the engine and the
-    device."""
+    device. Over an engine with a mesh of two or more model ranks, every
+    rank builds one: rank 0's serves, the others follow it (module
+    docstring)."""
 
     def __init__(self, engine: Engine, tokenizer=None,
                  poll_idle_s: float = 0.005, timeout_s: float = 600.0):
         self.engine = engine
+        mesh = getattr(engine, "mesh", None)
+        group = None if mesh is None else mesh.control_group
+        self.control = None if group is None else _Control(group)
+        self.leader = mesh is None or mesh.tp_rank == 0
         self.timeout_s = timeout_s  # a request's wait before it is cancelled
         self.tokenizer = tokenizer if tokenizer is not None \
             else engine.tokenizer
@@ -91,33 +157,63 @@ class InferenceServer:
         for ev in events:
             ev.set()
 
-    def _serve(self):
-        eng = self.engine
-        if eng.device.type == "cuda":
+    def _set_device(self):
+        if self.engine.device.type == "cuda":
             # kernel wrappers launch on the current device's current stream
             import torch
 
-            torch.cuda.set_device(eng.device)
-        while not self._stop.is_set():
-            moved = False
-            while True:
-                try:
-                    req, ev = self._q.get_nowait()
-                except queue.Empty:
-                    break
-                with self._lock:
-                    self._events[req.request_id] = ev
+            torch.cuda.set_device(self.engine.device)
+
+    def _take(self):
+        """The requests and cancels queued since the last turn. Cancels come
+        after the submissions: a request that timed out before it reached
+        the engine is in its queue by then."""
+        reqs, cancels = [], []
+        while True:
+            try:
+                req, ev = self._q.get_nowait()
+            except queue.Empty:
+                break
+            with self._lock:
+                self._events[req.request_id] = ev
+            reqs.append(req)
+        while True:
+            try:
+                cancels.append(self._cancel_q.get_nowait())
+            except queue.Empty:
+                break
+        return reqs, cancels
+
+    def _serve(self):
+        """One turn: the leader takes its queued submissions and cancels;
+        with a control group every rank meets in the leader's message; every
+        rank then submits, cancels and steps alike. A follower submits the
+        leader's requests under the leader's ids, and no one waits on its
+        finished requests."""
+        eng = self.engine
+        self._set_device()
+        while True:
+            if self.leader:
+                stop = self._stop.is_set()
+                # at stop, queued requests stay queued (their submit times out)
+                reqs, cancels = ([], []) if stop else self._take()
+                msg = ([(r.request_id, r.prompt_ids, r.max_new_tokens) for r in reqs],
+                       cancels, stop)
+            if self.control is not None:
+                # every turn, idle ones too: a follower waits in this
+                # broadcast, bounded by the group's timeout
+                msg = self.control.exchange(msg if self.leader else None)
+            wanted, cancels, stop = msg
+            if stop:
+                return
+            if not self.leader:
+                reqs = [Request(prompt_ids=p, max_new_tokens=n, request_id=i)
+                        for i, p, n in wanted]
+            for req in reqs:
                 eng.submit(req)
-                moved = True
-            # after the submissions: a request that timed out before it
-            # reached the engine is in its queue by now
-            while True:
-                try:
-                    request_id = self._cancel_q.get_nowait()
-                except queue.Empty:
-                    break
+            for request_id in cancels:
                 eng.cancel(request_id)
-                moved = True
+            moved = bool(reqs or cancels)
             if eng.has_work:
                 for fin in eng.step():
                     with self._lock:
@@ -130,7 +226,7 @@ class InferenceServer:
                     if ev is not None:
                         ev.set()
                 moved = True
-            if not moved:
+            if self.leader and not moved:
                 time.sleep(self._poll)
 
     @property
@@ -140,16 +236,29 @@ class InferenceServer:
                 and self._thread.is_alive())
 
     def start(self):
+        """Start the engine thread (on a follower rank it follows the
+        leader's control messages)."""
         if self._thread is not None:
             raise RuntimeError("the server is already started")
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
-    def stop(self):
-        self._stop.set()
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Wait for the engine thread to end (a follower's ends at the
+        leader's stop flag, or when a collective fails); whether it has."""
         if self._thread is not None:
-            self._thread.join(timeout=30)
+            self._thread.join(timeout)
+            if self._thread.is_alive():
+                return False
             self._thread = None
+        return True
+
+    def stop(self):
+        """Stop the engine thread. On the leader the last control message
+        carries the stop flag; a follower's stop waits for it."""
+        if self.leader:
+            self._stop.set()
+        self.join(timeout=30)
 
     # -- request surface (thread-safe)
 
@@ -184,6 +293,9 @@ class InferenceServer:
         """Generate for one request and wait for it (timeout_s, default the
         server's): TimeoutError after cancelling it on timeout, EngineFailed
         if the engine thread has died."""
+        if not self.leader:
+            raise RuntimeError("a follower rank takes no submissions: submit "
+                               "to rank 0 of the model group")
         timeout_s = self.timeout_s if timeout_s is None else timeout_s
         if prompt_ids is None:
             check(prompt is not None, "prompt or prompt_ids required")
@@ -235,6 +347,9 @@ class InferenceServer:
 
 def make_http_server(inference: InferenceServer, host: str = "127.0.0.1",
                      port: int = 8000) -> ThreadingHTTPServer:
+    if not inference.leader:
+        raise ValueError("only rank 0 of the model group serves HTTP")
+
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet
             pass

@@ -5,7 +5,9 @@ SpeEncodeLayer). We instead parse the `.model` protobuf directly (minimal
 proto3 wire-format reader — the schema is public: ModelProto field 1 is a
 repeated SentencePiece{piece:1 string, score:2 float, type:3 enum}) and run
 the greedy highest-score pair merge that SentencePiece BPE (and llama2.c)
-uses. No external dependency: the port keeps only the pure-Python merge.
+uses. No external dependency. The merge runs in C++ (runtime/src/spm_bpe.cpp,
+built with g++ at first use) where there is a g++, else in Python;
+`merge_engine` says which.
 
 Also reads the llama2.c `tokenizer.bin` flavor (score, length, bytes records)
 used by karpathy tinyllamas checkpoints.
@@ -100,6 +102,13 @@ class SentencePieceTokenizer(Tokenizer):
         for i, (p, t) in enumerate(zip(pieces, self.types)):
             if t == _BYTE and len(p) == 6 and p.startswith("<0x"):
                 self._byte_ids[int(p[3:5], 16)] = i
+        # the native merge engine where g++ built it; the Python loop stays
+        # as the oracle and the merge without g++ (a source that does not
+        # compile raises here)
+        from ..runtime.native import SpmMergeEngine, available
+
+        self._native = SpmMergeEngine(self.pieces, self.scores) if available() else None
+        self.merge_engine = "python" if self._native is None else "native"
 
     @classmethod
     def from_file(cls, path: str, **kw) -> "SentencePieceTokenizer":
@@ -129,7 +138,8 @@ class SentencePieceTokenizer(Tokenizer):
         text = text.replace(" ", _SPACE)
         if self.add_dummy_prefix and not text.startswith(_SPACE):
             text = _SPACE + text
-        ids = self._merge_py(self._symbols_of(text))
+        ids = self._symbols_of(text)
+        ids = self._merge_py(ids) if self._native is None else self._native.merge(ids)
         if bos:
             ids = [self.bos_id] + ids
         if eos:

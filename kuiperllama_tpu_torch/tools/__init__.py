@@ -6,6 +6,11 @@ names. Kernel measurement:
     python -m kuiperllama_tpu_torch.tools.exp_int8       # GEMV formulations over an int8 stack
     python -m kuiperllama_tpu_torch.tools.bench_kernels  # INT8 matmul GB/s at a preset's shapes
 
+Parallelism:
+
+    python -m kuiperllama_tpu_torch.tools.scaling        # tp scaling on a pool of ranks, projected on NVLink
+    python -m kuiperllama_tpu_torch.tools.seqpar_bytes   # seqpar page-read bytes per rank (host only)
+
 Checkpoints and quality:
 
     python -m kuiperllama_tpu_torch.tools.export         # HF dir / --random -> .bin v0/v3
@@ -13,7 +18,7 @@ Checkpoints and quality:
     python -m kuiperllama_tpu_torch.tools.gate_group     # the gate on the tinychar fixtures
     python -m kuiperllama_tpu_torch.tools.hf_parity      # logits and tokens against transformers
 
-`export` runs on the host only.
+`export` and `seqpar_bytes` run on the host only.
 
 Each takes `--device` (default cuda). Without a card a cuda run exits
 non-zero; it never falls back to the CPU. `--device cpu` runs the kernels'

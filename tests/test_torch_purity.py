@@ -170,3 +170,22 @@ def test_scan_covers_the_parallel_slice():
                                          "sharded_paged", "seqpar", "launch")} <= scanned
     cases = REPO / "tests" / "torch_rank_cases.py"
     assert not [n for n in _modules(cases, ["tests"]) if _banned(n)]
+
+
+def test_scan_covers_the_native_runtime_and_parallel_tools():
+    """The native runtime, the two parallel tools and the server are
+    scanned (chip_smoke.py too, above); the runtime's C++ sources are byte
+    copies of the JAX package's, and its bindings import nothing of it."""
+    scanned = {f.relative_to(PKG).as_posix() for f, _ in _port_sources()}
+    assert {"runtime/__init__.py", "runtime/native.py", "tools/scaling.py",
+            "tools/seqpar_bytes.py", "serving/server.py"} <= scanned
+    for name in ("loader.cpp", "spm_bpe.cpp"):
+        port = PKG / "runtime" / "src" / name
+        assert port.read_bytes() == (REPO / "kuiperllama_tpu" / "runtime" / "src"
+                                     / name).read_bytes()
+    for rel in ("runtime/native.py", "tools/scaling.py", "tools/seqpar_bytes.py",
+                "serving/server.py", "tokenizer/spm.py"):
+        parts = ["kuiperllama_tpu_torch", *Path(rel).parent.parts]
+        assert not [n for n in _modules(PKG / rel, parts) if _banned(n)], rel
+    assert "kuiperllama_tpu_torch.runtime.native" in set(
+        _modules(PKG / "tokenizer" / "spm.py", ["kuiperllama_tpu_torch", "tokenizer"]))

@@ -196,14 +196,14 @@ def world_info():
                 backend=dist.get_backend())
 
 
-def open_pool(tmp_dir, world: int):
+def open_pool(tmp_dir, world: int, timeout_s: float = 60):
     """A RankPool of `world` gloo ranks on the CPU, meeting through a file
     under `tmp_dir` (no TCP port: several test files run at once); each
-    collective gives up after 60 s, so a hung group fails its test."""
+    collective gives up after `timeout_s`, so a hung group fails its test."""
     from kuiperllama_tpu_torch.parallel.launch import RankPool
 
     return RankPool(world, backend="gloo", init_method=f"file://{tmp_dir}/rendezvous",
-                    timeout_s=60)
+                    timeout_s=timeout_s)
 
 
 def numpy_tree(params):
@@ -273,3 +273,315 @@ def paged_step(cfg_kw, tree, tokens, lens, pt, n_pages, ps, steps, tp, seqpar):
                              torch.zeros(B, dtype=torch.bool), None, stop, t(pt), t(fb),
                              t(fp), t(ft), t(ni), steps, page_size=ps, covered=covered)[0]
     return dict(_where(mesh), first=first.tolist(), toks=toks.tolist())
+
+
+# ---------------------------------------------------------------------------
+# The server across ranks (tests/test_torch_server_ranks.py): every rank
+# builds PagedEngine(mesh=) and InferenceServer; rank 0 serves, rank 1
+# follows. Each case returns, on every rank, the requests its engine was
+# given (id, tokens, finished), in order, and its free pages.
+
+
+# the server cases' pool's timeout: every collective of their meshes, the
+# control broadcasts too
+SERVER_GROUP_TIMEOUT_S = 3
+
+
+def _served_engine(cfg_kw, tree, tp, engine_kw, seqpar=False, timeout_s=30.0):
+    """This rank's mesh, PagedEngine(mesh=), InferenceServer and the list
+    its engine's submissions are recorded into."""
+    from kuiperllama_tpu_torch.serving.engine import PagedEngine
+    from kuiperllama_tpu_torch.serving.server import InferenceServer
+
+    set_use_kernels(False)
+    mesh = make_mesh(1, tp)
+    cfg, params = tiny_config(**cfg_kw), from_jax_params(tree, device="cpu")
+    eng = PagedEngine(cfg, params, mesh=mesh, seqpar=seqpar, cache_dtype=torch.float32,
+                      **engine_kw)
+    submitted, submit = [], eng.submit
+
+    def record(req):
+        submitted.append(req)
+        submit(req)
+
+    eng.submit = record
+    srv = InferenceServer(eng, timeout_s=timeout_s, poll_idle_s=0.002)
+    return mesh, eng, srv, submitted
+
+
+def _report(mesh, eng, srv, submitted, free0, **extra):
+    return dict(_where(mesh), leader=srv.leader, free_start=free0,
+                free_end=eng.allocator.n_free_pages, has_work=eng.has_work,
+                error=None if srv.error is None else repr(srv.error),
+                control_messages=srv.control.messages,
+                submitted=[(r.request_id, list(r.out_ids), r.finished) for r in submitted],
+                **extra)
+
+
+def _follow(srv, seconds=60.0):
+    """A follower's part: follow until the leader's stop flag (or a failed
+    collective) ends the loop; whether it ended."""
+    srv.start()
+    return srv.join(seconds)
+
+
+def _queue_then_start(srv, prompts, max_new):
+    """Submit `prompts` from one client thread each, queued in order before
+    the server starts (one turn takes them all, as JAX's server queued the
+    same way does), then start it and wait: the answers' ids."""
+    import threading
+    import time
+
+    answers = [None] * len(prompts)
+
+    def client(i):
+        try:
+            answers[i] = srv.submit(prompt_ids=list(prompts[i]), max_new_tokens=max_new)
+        except Exception as e:  # noqa: BLE001 (returned to the test)
+            answers[i] = e
+
+    threads = []
+    for i in range(len(prompts)):
+        threads.append(threading.Thread(target=client, args=(i,), daemon=True))
+        threads[-1].start()
+        end = time.monotonic() + 10
+        while srv._q.qsize() < i + 1 and time.monotonic() < end:
+            time.sleep(0.001)
+    srv.start()
+    for t in threads:
+        t.join(60)
+    return [a["ids"] if isinstance(a, dict) else repr(a) for a in answers]
+
+
+def serve_queued(cfg_kw, tree, prompts, max_new, tp, engine_kw, seqpar=False):
+    """Requests queued on rank 0's server before it starts, then served."""
+    mesh, eng, srv, submitted = _served_engine(cfg_kw, tree, tp, engine_kw, seqpar)
+    free0 = eng.allocator.n_free_pages
+    if not srv.leader:
+        ended = _follow(srv)
+        return _report(mesh, eng, srv, submitted, free0, ended=ended)
+    answers = _queue_then_start(srv, prompts, max_new)
+    srv.stop()
+    return _report(mesh, eng, srv, submitted, free0, answers=answers, ended=srv.join(0))
+
+
+def _http(base, path, body=None):
+    """(status, JSON) of a GET, or of a POST of `body`."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(base + path, data=data),
+                                    timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_http(cfg_kw, tree, prompts, max_new, tp, engine_kw, bad=()):
+    """Rank 0's HTTP front: every prompt posted at once from its own
+    thread, then each body of `bad` (each must be refused), then one more
+    valid request; the statuses and answers."""
+    import threading
+
+    from kuiperllama_tpu_torch.serving.server import make_http_server
+
+    mesh, eng, srv, submitted = _served_engine(cfg_kw, tree, tp, engine_kw)
+    free0 = eng.allocator.n_free_pages
+    if not srv.leader:
+        try:
+            make_http_server(srv, "127.0.0.1", 0)
+            refused = False
+        except ValueError:
+            refused = True
+        ended = _follow(srv)
+        return _report(mesh, eng, srv, submitted, free0, ended=ended,
+                       http_refused=refused)
+    srv.start()
+    httpd = make_http_server(srv, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        results = [None] * len(prompts)
+
+        def client(i):
+            results[i] = _http(base, "/generate", {"prompt_ids": list(prompts[i]),
+                                                   "max_new_tokens": max_new})
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        refused = [_http(base, "/generate", b) for b in bad]
+        after = _http(base, "/generate", {"prompt_ids": list(prompts[0]),
+                                          "max_new_tokens": max_new})
+        health = _http(base, "/healthz")
+        metrics = _http(base, "/metrics")[1]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop()
+    return _report(mesh, eng, srv, submitted, free0, results=results, refused=refused,
+                   after=after, health=health, metrics=metrics, ended=srv.join(0))
+
+
+def serve_timeout(cfg_kw, tree, prompt, max_new, tp, engine_kw, timeout_s, step_delay):
+    """A request that times out on rank 0 mid-decode (rank 0's steps are
+    slowed by `step_delay` s), then one that is served. Rank 1 first makes
+    100 requests of its own, so its id counter runs ahead of rank 0's, and
+    reads its counter again at the end."""
+    import time
+
+    from kuiperllama_tpu_torch.serving.engine import Request
+
+    mesh, eng, srv, submitted = _served_engine(cfg_kw, tree, tp, engine_kw)
+    free0 = eng.allocator.n_free_pages
+    if not srv.leader:
+        skewed = [Request(prompt_ids=[1]).request_id for _ in range(100)]
+        ended = _follow(srv)
+        return _report(mesh, eng, srv, submitted, free0, ended=ended, skewed=skewed,
+                       next_own_id=Request(prompt_ids=[1]).request_id)
+    step = eng.step
+
+    def slow():
+        out = step()
+        time.sleep(step_delay)
+        return out
+
+    eng.step = slow
+    srv.start()
+    try:
+        srv.submit(prompt_ids=list(prompt), max_new_tokens=max_new, timeout_s=timeout_s)
+        timed_out = False
+    except TimeoutError:
+        timed_out = True
+    end = time.monotonic() + 30
+    while eng.has_work and time.monotonic() < end:
+        time.sleep(0.01)
+    free_after_cancel = eng.allocator.n_free_pages
+    eng.step = step
+    after = srv.submit(prompt_ids=list(prompt), max_new_tokens=4)["ids"]
+    srv.stop()
+    return _report(mesh, eng, srv, submitted, free0, timed_out=timed_out,
+                   free_after_cancel=free_after_cancel, after=after, ended=srv.join(0))
+
+
+def serve_after_idle(cfg_kw, tree, prompt, max_new, tp, engine_kw, idle_s):
+    """Rank 0's server idles `idle_s` seconds (longer than the group's
+    timeout), then serves one request."""
+    import time
+
+    mesh, eng, srv, submitted = _served_engine(cfg_kw, tree, tp, engine_kw)
+    free0 = eng.allocator.n_free_pages
+    if not srv.leader:
+        ended = _follow(srv)
+        return _report(mesh, eng, srv, submitted, free0, ended=ended)
+    srv.start()
+    time.sleep(idle_s)
+    alive = srv.alive
+    ids = srv.submit(prompt_ids=list(prompt), max_new_tokens=max_new)["ids"]
+    srv.stop()
+    return _report(mesh, eng, srv, submitted, free0, alive_after_idle=alive, answer=ids,
+                   ended=srv.join(0))
+
+
+def serve_with_fault(cfg_kw, tree, prompts, max_new, tp, engine_kw, fault_step):
+    """Rank 1's engine raises in its `fault_step`-th step; rank 0 has
+    `prompts` waiting. Rank 0 returns how each request ended, the seconds
+    from start to the last answer, /healthz and whether a later submission
+    fails at once."""
+    import threading
+    import time
+
+    from kuiperllama_tpu_torch.serving.server import EngineFailed, make_http_server
+
+    mesh, eng, srv, submitted = _served_engine(cfg_kw, tree, tp, engine_kw)
+    free0 = eng.allocator.n_free_pages
+    if not srv.leader:
+        step, calls = eng.step, [0]
+
+        def faulty():
+            calls[0] += 1
+            if calls[0] == fault_step:
+                raise RuntimeError("rank 1 fails on purpose")
+            return step()
+
+        eng.step = faulty
+        ended = _follow(srv)
+        return _report(mesh, eng, srv, submitted, free0, ended=ended)
+    outcomes = [None] * len(prompts)
+
+    def client(i):
+        try:
+            srv.submit(prompt_ids=list(prompts[i]), max_new_tokens=max_new)
+            outcomes[i] = "answered"
+        except EngineFailed:
+            outcomes[i] = "EngineFailed"
+        except Exception as e:  # noqa: BLE001 (returned to the test)
+            outcomes[i] = repr(e)
+
+    t0 = time.monotonic()
+    srv.start()
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    seconds = time.monotonic() - t0
+    httpd = make_http_server(srv, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        health = _http(f"http://127.0.0.1:{httpd.server_address[1]}", "/healthz")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    t1 = time.monotonic()
+    try:
+        srv.submit(prompt_ids=list(prompts[0]), max_new_tokens=max_new)
+        later = "answered"
+    except EngineFailed:
+        later = "EngineFailed"
+    later_s = time.monotonic() - t1
+    srv.stop()
+    return _report(mesh, eng, srv, submitted, free0, outcomes=outcomes, seconds=seconds,
+                   health=health, later=later, later_s=later_s, alive=srv.alive,
+                   ended=srv.join(0))
+
+
+def serve_stop(cfg_kw, tree, tp, engine_kw):
+    """start() then stop() on rank 0: the seconds each rank's loop took to
+    end after rank 0's stop (rank 1: from its start)."""
+    import time
+
+    mesh, eng, srv, submitted = _served_engine(cfg_kw, tree, tp, engine_kw)
+    free0 = eng.allocator.n_free_pages
+    t0 = time.monotonic()
+    if not srv.leader:
+        ended = _follow(srv, seconds=20)
+        return _report(mesh, eng, srv, submitted, free0, ended=ended,
+                       seconds=time.monotonic() - t0)
+    srv.start()
+    time.sleep(0.2)
+    t0 = time.monotonic()
+    srv.stop()
+    return _report(mesh, eng, srv, submitted, free0, ended=srv.join(0),
+                   seconds=time.monotonic() - t0)
+
+
+def control_groups():
+    """The control group at tp = 2 (its backend and size) and at tp = 1, and
+    the timeout (s) of each group of a tp = 2 mesh."""
+    import torch.distributed as dist
+
+    two, one = make_mesh(1, 2), make_mesh(1, 1)
+    g = two.control_group
+    cpu = torch.device("cpu")
+    return dict(tp2=(dist.get_backend(g), dist.get_world_size(g),
+                     dist.get_backend(two.model_group)),
+                tp1=None if one is None else one.control_group,
+                timeouts=[x._get_backend(cpu).options._timeout.total_seconds()
+                          for x in (two.model_group, two.data_group, two.control_group)])
