@@ -199,6 +199,28 @@ last line:
      the parallel tools: seqpar_bytes against the committed
      SEQPAR_r05.json, scaling at a world of one NCCL rank (its entry point)
      and on the two gloo ranks, the counted bill verified.
+ 17. tools (after phase 14, before 15): the remaining tools of
+     kuiperllama_tpu_torch/tools, each through its entry point in a child
+     process (`python -m kuiperllama_tpu_torch.tools.<name>`; the child
+     keeps its patches and KT_FUSED_BIG to itself), every output under
+     smoke_out/tools17: profile_decode (TinyLlama-1.1B INT8: eager and
+     graph-replay tokens equal, w2 at 88 groups on the GEMM), profile_paged
+     (Llama-2-7B INT8, B = 8: the graph route's tokens equal the eager
+     route's; from zeroed pools only the full step writes them; the stubbed
+     variant launches no paged attention, the others as many as each other;
+     stubbed <= no page writes <= full step, each within 5%),
+     exp_diag (its three w2 shapes: the GEMV at cap 176, the GEMM at cap
+     64), exp_big (Llama-2-7B g 64 at hidden 11008 and 11264 under
+     KT_FUSED_BIG=1: the measured route big), bench_matrix (--only
+     tinyllama_int8_b1,qwen2.5-0.5b_fp_b1: both rows without an error),
+     profile2 (TinyLlama-1.1B with --trace: the trace file exists), exp_step
+     (Llama-2-7B, 128 steps: the measured route layered, no megakernel
+     launched, the second baseline's tokens
+     equal the first's), exp_ablate (TinyLlama-1.1B: every part present),
+     train_tiny (200 steps: the gate passes on the GEMM, final train loss
+     <= 2.0), exp_cache (TinyLlama-1.1B: forms A, B, C give equal tokens).
+     Each run exits 0 and launched every kernel its route needs; its
+     launches join the kernels line under `tools17.<run>`.
  native (after phase 11): the native runtime (runtime/native.py) built by
      g++ from the checkout; the SPM tokenizer's merge_engine is "native" and
      equal to its Python merge on NATIVE_TEXTS random texts; each committed
@@ -234,6 +256,7 @@ FUSED_TOL.
 """
 
 import contextlib
+import gc
 import json
 import os
 import sys
@@ -2664,6 +2687,156 @@ def phase_bench(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 17: the remaining tools, each in a child process
+
+
+# outputs of phase 17 (gitignored)
+TOOLS17_OUT = os.path.join(HERE, "smoke_out", "tools17")
+TOOLS17_TIMEOUT_S = 600
+# a tool's kernel wrappers by the names of the kernels line
+KERNEL_OF = {"fused_decode_step": "fused_decode", "fused_decode_step_big": "fused_decode_big",
+             "paged_attention_flat": "paged_attention"}
+NOISE = 1.05  # profile_paged's variants, each within 5% of the one it drops a piece from
+
+
+def tools17_runs():
+    """(label, tool, argv, extra environment, kernels its route launches)."""
+    big = {"KT_FUSED_BIG": "1"}
+    return [
+        ("profile_decode", "profile_decode", ["--model", "tinyllama-1.1b"], {},
+         ("quant_gemv", "quant_gemm")),
+        ("profile_paged", "profile_paged", ["--model", "llama2-7b", "--batch", "8"], {},
+         ("quant_gemm", "paged_attention")),
+        ("exp_diag", "exp_diag", [], {}, ("quant_gemv", "quant_gemm")),
+        ("exp_big 11008", "exp_big", ["--hidden", "11008"], big,
+         ("fused_decode_big", "quant_gemv")),
+        ("exp_big 11264", "exp_big", ["--hidden", "11264"], big,
+         ("fused_decode_big", "quant_gemv")),
+        ("bench_matrix", "bench_matrix",
+         ["--only", "tinyllama_int8_b1,qwen2.5-0.5b_fp_b1",
+          "--out", os.path.join(TOOLS17_OUT, "bench_matrix.json")], {},
+         ("fused_decode",)),
+        ("profile2", "profile2",
+         ["--model", "tinyllama-1.1b", "--trace", os.path.join(TOOLS17_OUT, "trace")], {},
+         ("quant_gemv", "quant_gemm")),
+        ("exp_step", "exp_step", ["--model", "llama2-7b", "--steps", "128"], {},
+         ("quant_gemv",)),
+        ("exp_ablate", "exp_ablate", ["--model", "tinyllama-1.1b"], {},
+         ("quant_gemv", "quant_gemm")),
+        ("train_tiny", "train_tiny",
+         ["--steps", "200", "--out", os.path.join(TOOLS17_OUT, "train_tiny")], {},
+         ("quant_gemm",)),
+        ("exp_cache", "exp_cache", [], {},
+         ("quant_gemv", "quant_gemm")),
+    ]
+
+
+def tools17_checks(tool: str, line: dict, argv) -> dict:
+    """Each check of a tool's last line by name."""
+    if tool == "profile_decode":
+        return dict(tokens_equal=line["tokens_equal"] is True,
+                    w2_on_gemm=line["shapes"]["w2"]["kernel"] == "gemm")
+    if tool == "profile_paged":
+        ms = line["ms_per_step"]
+        full, no_writes, stub = (ms[k] for k in ("full step", "no KV scatter",
+                                                 "no scatter, attention stubbed"))
+        attn = {t: n["paged_attention_flat"] for t, n in line["launches_by_variant"].items()}
+        return dict(tokens_equal_eager=line["tokens_equal_eager"] is True,
+                    graphs=line["graphs"] is True,
+                    only_full_step_writes_pools=line["writes_pools"] == {
+                        "full step": True, "no KV scatter": False,
+                        "no scatter, attention stubbed": False},
+                    stub_launches_no_attention=attn == {
+                        "full step": attn["full step"], "no KV scatter": attn["full step"],
+                        "no scatter, attention stubbed": 0} and attn["full step"] > 0,
+                    stub_le_no_writes=stub <= no_writes * NOISE,
+                    no_writes_le_full=no_writes <= full * NOISE)
+    if tool == "exp_diag":
+        out = {}
+        for key, row in line.items():
+            if key.startswith("K") and isinstance(row, dict):
+                gemv, gemm = row["cap176_diag"]["launches"], row["cap64_generic"]["launches"]
+                out[f"{key} cap176 gemv"] = gemv["quant_gemv"] > 0 and gemv["quant_gemm"] == 0
+                out[f"{key} cap64 gemm"] = gemm["quant_gemm"] > 0 and gemm["quant_gemv"] == 0
+        return dict(out, three_shapes=len(out) == 6)
+    if tool == "exp_big":
+        return dict(route_big=line["route"] == "big", plan=line["plan"] is not None,
+                    hidden=line["hidden_dim"] == int(argv[argv.index("--hidden") + 1]))
+    if tool == "bench_matrix":
+        return dict(rows=line["rows"] == {"tinyllama_int8_b1": True,
+                                          "qwen2.5-0.5b_fp_b1": True})
+    if tool == "profile2":
+        return dict(trace_exists=bool(line["trace"]) and os.path.isfile(line["trace"]),
+                    graphs=line["graphs"] is True)
+    if tool == "exp_step":
+        n = line["launches"]
+        return dict(route_layered=line["route"] == "layered",
+                    no_megakernel=n["fused_decode_step"] == n["fused_decode_chunk"]
+                    == n["fused_decode_step_big"] == 0,
+                    baseline_tokens_equal=line["baseline_tokens_equal"] is True,
+                    components=len(line["component_cost_ms"]) == 5)
+    if tool == "exp_ablate":
+        return dict(shapes=len(line["shapes"]) == 5,
+                    int8_chunk=sorted(line["int8_chunk"]) == ["1024", "2048", "256"],
+                    bf16_chunk="ms_per_token" in line["bf16_chunk"],
+                    small_vocab_chunk="ms_per_token" in line["small_vocab_chunk"])
+    if tool == "train_tiny":
+        return dict(passes_gate=line["passes_gate"] is True,
+                    loss_le_2=line["final_train_loss"] <= 2.0,
+                    kernel_mode=line["kernel_mode"] == "cuda-gemm")
+    if tool == "exp_cache":
+        return dict(tokens_equal=line["tokens_equal"] is True, graphs=line["graphs"] is True)
+    raise KeyError(tool)
+
+
+def phase_tools17(dev):
+    """The remaining tools (kuiperllama_tpu_torch/tools), each as a user runs
+    it, in a child process that keeps its patches and KT_FUSED_BIG to itself:
+    its exit code, its last JSON line held to the tool's checks, and its
+    launches counted where its route needs each kernel. Returns each run's
+    launches under `tools17.<label>`."""
+    import shutil
+    import subprocess
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TOOLS17_OUT, ignore_errors=True)
+    os.makedirs(TOOLS17_OUT)
+    launches = {}
+    for label, tool, argv, env, needs in tools17_runs():
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", f"kuiperllama_tpu_torch.tools.{tool}", *argv],
+            cwd=HERE, env=dict(os.environ, **env), capture_output=True, text=True,
+            timeout=TOOLS17_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        lines = res.stdout.strip().splitlines()
+        try:
+            line = json.loads(lines[-1]) if lines else {}
+        except ValueError:
+            line = {}
+        counts = dict(NO_LAUNCHES, **{KERNEL_OF.get(k, k): n
+                                      for k, n in line.get("launches", {}).items()})
+        try:
+            checks = tools17_checks(tool, line, argv) if res.returncode == 0 else {}
+        except (KeyError, TypeError, ValueError) as e:
+            checks = {"line_readable": False, "error": repr(e)}
+        checks.update({f"launched {k}": counts[k] > 0 for k in needs})
+        ok = res.returncode == 0 and bool(line) and all(
+            v is True for k, v in checks.items() if k != "error")
+        emit(dict(phase="tools17", tool=label, args=argv, env=env,
+                  returncode=res.returncode, seconds=seconds, checks=checks,
+                  line=line, ok=ok, card=CARD))
+        if not ok:
+            print(res.stdout[-2000:], res.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"tools17: {label} failed its checks")
+        launches[f"tools17.{label}"] = counts
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 15: tensor and sequence parallelism (parallel/*), two ranks on the card
 
 
@@ -3899,6 +4072,7 @@ def main() -> int:
     launches["ppl"] = phase_ppl(dev)
     launches["hf qwen2.5-0.5b"] = phase_hf(dev)
     launches.update(phase_bench(dev))
+    launches.update(phase_tools17(dev))
     launches.update(phase_parallel(dev))
     emit(kernels_line(gemv, gemm, fused_rows + [fused_step, qwen_step],
                       fused_step, paged_rows, launches, big_rows, big_step,

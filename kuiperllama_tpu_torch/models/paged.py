@@ -49,6 +49,11 @@ from ..parallel.collectives import all_gather, group_rank
 from ..serving.graphs import run_steps
 from .decoder import _mlp_residual, _qkv, build_rope
 
+# A measurement switch, the JAX package's: the decode step skips its page
+# writes, so that tools/profile_paged.py can time them apart. Read at call
+# time (a graph captured with it set keeps skipping). Never set in serving.
+_DEBUG_SKIP_WRITES = False
+
 
 def _write_chunk_pages(li, kp_all, vp_all, k2, v2, chunk_pages, ps):
     """Write [B, T, kv_dim] K/V of layer li into pages, in place.
@@ -275,8 +280,9 @@ def decode_step_paged(cfg: ModelConfig, params, state: DecodeState, k_pages,
         q, k, v, H, KH = _qkv(cfg, blocks, li, x, s, c, B, 1, mode)
         # retired slots' page-table rows are 0, the garbage page: several
         # such rows write it in an undefined order, which is harmless
-        k_pages[li, write_page, write_off] = k.reshape(B, KH * hd).to(k_pages.dtype)
-        v_pages[li, write_page, write_off] = v.reshape(B, KH * hd).to(v_pages.dtype)
+        if not _DEBUG_SKIP_WRITES:
+            k_pages[li, write_page, write_off] = k.reshape(B, KH * hd).to(k_pages.dtype)
+            v_pages[li, write_page, write_off] = v.reshape(B, KH * hd).to(v_pages.dtype)
         acc, m, l = paged_attention_flat(
             q[:, 0].contiguous(), k_pages, v_pages, flat_b, flat_page,
             flat_tok0, n_items, seq_lens, page_size=page_size, layer_idx=li)

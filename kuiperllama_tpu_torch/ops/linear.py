@@ -62,14 +62,18 @@ def _dequant_dot(x2: torch.Tensor, w: QuantTensor) -> torch.Tensor:
     return (x2.to(torch.bfloat16).float() @ wd.float()).to(x2.dtype)
 
 
+def takes_gemv(rows: int, K: int, g: int, mode: str = "fast") -> bool:
+    """Whether an INT8 projection of `rows` rows (below
+    PREFILL_DEQUANT_ROWS) takes the GEMV: one row in fast mode with at most
+    GEMV_MAX_GROUPS groups, read at call time. Else it takes the GEMM."""
+    return rows == 1 and mode == "fast" and K % g == 0 and K // g <= GEMV_MAX_GROUPS
+
+
 def quant_kernel(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, g: int,
                  mode: str = "fast") -> torch.Tensor:
     """The INT8 kernel that x2 [rows, K] takes below PREFILL_DEQUANT_ROWS
-    rows: the GEMV at one row in fast mode with at most GEMV_MAX_GROUPS
-    groups, else the GEMM."""
-    K = q.shape[0]
-    if (x2.shape[0] == 1 and mode == "fast" and K % g == 0
-            and K // g <= GEMV_MAX_GROUPS):
+    rows (`takes_gemv`)."""
+    if takes_gemv(x2.shape[0], q.shape[0], g, mode):
         return quant_gemv(x2, q, s, g)
     return quant_gemm(x2, q, s, g, mode)
 

@@ -34,7 +34,7 @@ from ..config import preset_config
 from ..ops.linear import _dequant_dot, linear_layered, quant_kernel
 from ..quant import QuantTensor
 from ..utils.profiling import device_time, l2_copies
-from . import ITERS, add_device_arg, device_name, resolve_device
+from . import ITERS, add_device_arg, device_name, projection_shapes, resolve_device
 
 VARIANTS = ("kernel", "kernel-layered", "torch")
 
@@ -72,9 +72,7 @@ def bench_quant_shape(dev, K, N, M, group_size=64, variant="kernel",
 def run(dev, model="llama2-7b", m=1, group_size=64, variant="kernel",
         scales_dtype="float32", layers=4, shapes=None) -> dict:
     cfg = preset_config(model)
-    d, h, kv, V = cfg.dim, cfg.hidden_dim, cfg.kv_dim, cfg.vocab_size
-    table = {"wqkv": (d, d + 2 * kv), "wo": (d, d), "w13": (d, 2 * h),
-             "w2": (h, d), "lm_head": (d, V)}
+    table = projection_shapes(cfg)
     if shapes:
         keep = set(shapes.split(","))
         table = {k: v for k, v in table.items() if k in keep}

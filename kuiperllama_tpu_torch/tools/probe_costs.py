@@ -61,10 +61,11 @@ import torch
 from kuiperllama_tpu_torch.ops.kernels import build
 from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
 from kuiperllama_tpu_torch.quant import quantize_q80
+from kuiperllama_tpu_torch.tools import HBM_SHEET_GBPS
 from kuiperllama_tpu_torch.tools import exp_kernel as ek
 from kuiperllama_tpu_torch.utils.profiling import device_time, l2_copies, nvidia_smi_line
 
-HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES_PER_S = HBM_SHEET_GBPS * 1e9
 ITERS = 25
 PROFILED_CALLS = 20
 PLANS = (1, 2, 3, 4, 6, 8)  # blocks per SM

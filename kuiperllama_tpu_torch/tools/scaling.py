@@ -43,12 +43,11 @@ import time
 
 import torch
 
-from . import add_device_arg, device_name, resolve_device
+from . import HBM_SHEET_GBPS, HBM_SHEET_SOURCE, add_device_arg, device_name, resolve_device
 
 # NVLink 4 on the H100 SXM data sheet: 900 GB/s a GPU, both directions
 LINK_GBPS = 450.0
 LINK_SOURCE = "H100 SXM data sheet: NVLink 900 GB/s per GPU bidirectional, 450 each way"
-HBM_SHEET_GBPS = 3350.0
 # a per-collective latency: an assumption, not a measurement
 COLL_US = 10.0
 COLL_SOURCE = "assumed per collective, not measured"
@@ -239,7 +238,7 @@ def main(argv=None) -> dict:
 
         hbm, hbm_source = probe_read(dev), "roofline.probe_read on this card"
     else:
-        hbm, hbm_source = HBM_SHEET_GBPS, "H100 SXM data sheet (no card in this run)"
+        hbm, hbm_source = HBM_SHEET_GBPS, f"{HBM_SHEET_SOURCE} (no card in this run)"
     rdv = tempfile.mkdtemp(prefix="kt_scaling_")
     try:
         with RankPool(args.world, backend=args.backend, init_method=f"file://{rdv}/rdv",
