@@ -6,8 +6,18 @@
 Phases, each printing JSON lines; any failure exits non-zero before the
 last line:
   1. device: the card's name, power limit and count; fails without CUDA.
-  2. build: nvcc builds every kernel of the path from csrc/, one process
-     per source, all at once.
+  2. build: the ahead-of-time build, `python -m
+     kuiperllama_tpu_torch.ops.kernels.build`, as a child process from the
+     checkout's root: nvcc builds every csrc/*.cu (one process per source,
+     all at once) and g++ the native runtime's two libraries; it must exit
+     0. A second call must report every library `cached`, and afterwards
+     `build.build` of every csrc source builds nothing, so no later phase
+     runs nvcc. The row: `seconds` (the first call's wall), `per_source_s`
+     (nvcc wall per source), `runtime_s` (g++ per library), `flags`,
+     `cached_first_call`, `cached_second_call`, `second_call_s`, and the
+     card's nvidia-smi line. After the last phase, a `built_nothing` row:
+     no library appeared in _build/ since (no phase, nor a child process of
+     one, ran a compiler).
   2a. recapture: decode steps replay CUDA graphs on the card (the port's
      default; serving/graphs.py). A Qwen2.5-0.5B Generator decodes 128
      tokens on its graph, a TinyLlama-1.1B Generator (2 layers) grows the
@@ -221,8 +231,8 @@ last line:
      <= 2.0), exp_cache (TinyLlama-1.1B: forms A, B, C give equal tokens).
      Each run exits 0 and launched every kernel its route needs; its
      launches join the kernels line under `tools17.<run>`.
- native (after phase 11): the native runtime (runtime/native.py) built by
-     g++ from the checkout; the SPM tokenizer's merge_engine is "native" and
+ native (after phase 11): the native runtime (runtime/native.py), built
+     by g++ from the checkout in phase 2 (`build_s` is then its load); the SPM tokenizer's merge_engine is "native" and
      equal to its Python merge on NATIVE_TEXTS random texts; each committed
      fixture's native header equals binfmt's (the v3 Qwen2 file refused, as
      by the JAX copy).
@@ -3731,8 +3741,8 @@ def phase_parallel_tools(dev, pool):
 
 
 def phase_native(dev):
-    """The native runtime (kuiperllama_tpu_torch/runtime): g++ builds the
-    loader and the merge engine from the checkout; the SPM tokenizer takes
+    """The native runtime (kuiperllama_tpu_torch/runtime): the loader and the
+    merge engine, built by g++ in phase 2, load; the SPM tokenizer takes
     the native merge, equal to its Python merge on NATIVE_TEXTS random
     texts; the native header of each committed fixture equals the header
     checkpoint/binfmt.py reads (the v3 Qwen2 file, whose body carries
@@ -4013,6 +4023,57 @@ def kernels_line(gemv, gemm, fused_rows, fused_step, paged_rows, launches_by_pat
     ]}
 
 
+def build_command():
+    """One run of the ahead-of-time build as a child process from the
+    checkout's root: (wall seconds, the command's JSON line); fails unless
+    it exits 0."""
+    import subprocess
+
+    cmd = [sys.executable, "-m", "kuiperllama_tpu_torch.ops.kernels.build"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    print("".join(res.stdout.splitlines(keepends=True)[:-1]), end="", flush=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd[1:])} exited {res.returncode}:\n{res.stderr}")
+    return seconds, json.loads(res.stdout.splitlines()[-1])
+
+
+def phase_build():
+    """Phase 2: every kernel and runtime library built ahead of time by the
+    build command, which a second call finds all cached."""
+    from kuiperllama_tpu_torch.ops.kernels import build
+    from kuiperllama_tpu_torch.runtime import native
+
+    seconds, first = build_command()
+    second_s, second = build_command()
+    libraries = sorted(build.sources() + [src.stem for src in native.sources()])
+    cached_second = second["built"] == {} and sorted(second["cached"]) == libraries
+    left = build.build(build.sources())
+    ok = (sorted([*first["built"], *first["cached"]]) == libraries and cached_second
+          and left == {})
+    emit(dict(phase="build", seconds=seconds,
+              per_source_s={k: v for k, v in first["built"].items() if k in build.sources()},
+              runtime_s={k: v for k, v in first["built"].items() if k not in build.sources()},
+              flags=first["nvcc_flags"], cached_first_call=first["cached"],
+              cached_second_call=cached_second, second_call_s=second_s, ok=ok, card=CARD))
+    if not ok:
+        raise RuntimeError("build phase failed")
+    return set(build.BUILD_DIR.glob("lib*.so"))
+
+
+def phase_built_nothing(libraries):
+    """After the last phase: no library appeared in _build/ since phase 2,
+    so no phase (nor a child process of one) ran nvcc or g++."""
+    from kuiperllama_tpu_torch.ops.kernels import build
+
+    new = sorted(p.name for p in set(build.BUILD_DIR.glob("lib*.so")) - libraries)
+    emit(dict(phase="built_nothing", libraries=len(libraries), new_libraries=new,
+              ok=not new, card=CARD))
+    if new:
+        raise RuntimeError(f"libraries built after phase 2: {new}")
+
+
 def main() -> int:
     global CARD
     import torch
@@ -4020,13 +4081,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from kuiperllama_tpu_torch.ops.kernels import build
-    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
-    from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
-    from kuiperllama_tpu_torch.ops.kernels import paged_attention as pa
-    from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
-    from kuiperllama_tpu_torch.tools import exp_int8 as ei
-    from kuiperllama_tpu_torch.tools import exp_kernel as ek
     from kuiperllama_tpu_torch.utils.profiling import nvidia_smi_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4038,12 +4092,7 @@ def main() -> int:
     emit(dict(phase="device", kind=kind, count=torch.cuda.device_count(),
               nvidia_smi=CARD, torch=torch.__version__, cuda=torch.version.cuda))
 
-    t0 = time.perf_counter()
-    built = build.build([qm.GEMV_SOURCE, qm.GEMM_SOURCE, fd.SOURCE, pa.SOURCE,
-                         fb.SOURCE, fd.CHUNK_SOURCE, ek.SOURCE, ei.SOURCE])
-    emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              per_source_s=built, flags=" ".join(build.NVCC_FLAGS)))
-
+    libraries = phase_build()
     phase_recapture(dev)
     tool_rows, tool_launches = phase_tools(dev)
     gemv, gemm = phase_kernels(dev)
@@ -4074,6 +4123,7 @@ def main() -> int:
     launches.update(phase_bench(dev))
     launches.update(phase_tools17(dev))
     launches.update(phase_parallel(dev))
+    phase_built_nothing(libraries)
     emit(kernels_line(gemv, gemm, fused_rows + [fused_step, qwen_step],
                       fused_step, paged_rows, launches, big_rows, big_step,
                       chunk_rows + [qwen_chunk_step], chunk_step, tool_rows))

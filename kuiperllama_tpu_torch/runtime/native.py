@@ -6,9 +6,11 @@ Each library is built with g++ at its first use into the port's `_build/`
 (beside the CUDA kernels' libraries), under a name hashed from its source
 and flags, written to a temporary file and renamed into place, so processes
 that build at once never load a half-written library and an edited source
-builds anew. Without g++ nothing is built: `available()` is False and the
-tokenizer keeps its Python merge. A source that g++ refuses raises, with the
-compiler's output (the JAX copy swallows every build error).
+builds anew; `python -m kuiperllama_tpu_torch.ops.kernels.build --only
+runtime` builds both ahead of time. Without g++ nothing is built:
+`available()` is False and the tokenizer keeps its Python merge. A source
+that g++ refuses raises, with the compiler's output (the JAX copy swallows
+every build error).
 """
 
 from __future__ import annotations
@@ -32,6 +34,11 @@ _libs = {}
 def gxx() -> Optional[str]:
     """The g++ to build with, None when there is none."""
     return shutil.which("g++")
+
+
+def sources() -> List[Path]:
+    """Every C++ source of the runtime (`src/*.cpp`), sorted."""
+    return sorted(SRC_DIR.glob("*.cpp"))
 
 
 def lib_path(src: Path) -> Path:

@@ -15,6 +15,7 @@ from kuiperllama_tpu.api import KuiperModel as JModel
 from kuiperllama_tpu.ops.linear import set_use_pallas
 from kuiperllama_tpu_torch.api import KuiperModel
 from kuiperllama_tpu_torch.errors import InvalidArgument, ModelParseError, PathNotValid
+from torch_threads import one_thread  # noqa: F401
 
 CKPT = "checkpoints/tinychar/tinychar.q8.bin"
 PROMPT_IDS = [1, 20, 33, 45, 60, 7, 90]

@@ -33,6 +33,7 @@ from kuiperllama_tpu_torch.config import tiny_config
 from kuiperllama_tpu_torch.fuse import fuse_params
 from kuiperllama_tpu_torch.params import random_params_device
 from kuiperllama_tpu_torch.quant import cast_scales
+from torch_threads import one_thread  # noqa: F401
 
 SHAPE = dict(dim=256, hidden_dim=512, n_heads=4, n_kv_heads=2, vocab_size=512,
              seq_len=256)

@@ -21,6 +21,7 @@ import torch
 import bench_torch
 from kuiperllama_tpu_torch.tools import bench_matrix as bm
 from test_torch_exp_kernel import load_jax_tool
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 REAL_RUN = subprocess.run

@@ -20,6 +20,7 @@ from kuiperllama_tpu_torch.fuse import fuse_params
 from kuiperllama_tpu_torch.params import (param_bytes, random_params,
                                           random_params_device, to_device)
 from kuiperllama_tpu_torch.quant import QuantTensor
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
 FIXTURES = [

@@ -15,6 +15,7 @@ from kuiperllama_tpu.config import tiny_config as jtiny
 from kuiperllama_tpu.params import random_params
 from kuiperllama_tpu.parallel.hlo import decode_step_bill as jbill
 from kuiperllama_tpu.parallel.mesh import make_mesh as jmesh
+from torch_threads import one_thread  # noqa: F401
 
 CFG = dict(family="llama2", n_heads=8, n_kv_heads=4, dim=128, hidden_dim=256,
            vocab_size=512, seq_len=64)

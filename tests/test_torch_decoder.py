@@ -22,6 +22,7 @@ from kuiperllama_tpu_torch.convert import from_jax_params
 from kuiperllama_tpu_torch.fuse import fuse_params
 from kuiperllama_tpu_torch.models import decoder as tdec
 from kuiperllama_tpu_torch.params import to_device
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
 TOL = {"exact": 1e-4, "fast": 5e-3}

@@ -17,6 +17,7 @@ from kuiperllama_tpu.config import tiny_config as jtiny
 from kuiperllama_tpu.models import decoder as jdec
 from kuiperllama_tpu.ops.linear import set_use_pallas
 from kuiperllama_tpu.params import random_params, to_device
+from torch_threads import one_thread  # noqa: F401
 
 
 def test_single_process_group(tmp_path):

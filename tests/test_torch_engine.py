@@ -17,6 +17,7 @@ from kuiperllama_tpu.serving import engine as jeng
 from kuiperllama_tpu_torch.config import tiny_config
 from kuiperllama_tpu_torch.convert import from_jax_params
 from kuiperllama_tpu_torch.serving import engine as teng
+from torch_threads import one_thread  # noqa: F401
 
 PROMPTS = [[1, 5, 9], [2, 3], [7, 7, 7, 7], [4, 11]]
 

@@ -18,6 +18,7 @@ from kuiperllama_tpu.serving import engine as jeng
 from kuiperllama_tpu_torch.config import tiny_config
 from kuiperllama_tpu_torch.convert import from_jax_params
 from kuiperllama_tpu_torch.serving.engine import PagedEngine, Request
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

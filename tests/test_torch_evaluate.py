@@ -30,6 +30,7 @@ from kuiperllama_tpu_torch.checkpoint.binfmt import load_bin, write_v0, write_v3
 from kuiperllama_tpu_torch.config import tiny_config
 from kuiperllama_tpu_torch.params import random_params, to_device
 from kuiperllama_tpu_torch.tools import gate_group, ppl
+from torch_threads import one_thread  # noqa: F401
 
 FP32_TOL = 1e-5
 INT8_TOL = 2e-5

@@ -29,6 +29,7 @@ from kuiperllama_tpu_torch.params import to_device
 from kuiperllama_tpu_torch.serving import generate as tgen
 from kuiperllama_tpu_torch.serving.generate import _stop_array
 from kuiperllama_tpu_torch.tools import exp_cache
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
 FIXTURES = [("tinychar/tinychar.q8.bin", "llama2"),
@@ -36,14 +37,6 @@ FIXTURES = [("tinychar/tinychar.q8.bin", "llama2"),
             ("tinychar_qwen2/tinychar.q8.bin", "qwen2")]
 CPU = torch.device("cpu")
 CACHE, STEPS = 128, 12
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_tokens(rel, family):

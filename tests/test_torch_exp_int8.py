@@ -24,6 +24,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from test_torch_exp_kernel import load_jax_tool
 from kuiperllama_tpu_torch.tools import exp_int8 as tx
+from torch_threads import one_thread  # noqa: F401
 
 L, K, N = 2, 2048, 256
 

@@ -29,6 +29,7 @@ from jax.experimental import pallas as pl
 
 from kuiperllama_tpu_torch.tools import bench_kernels as tb
 from kuiperllama_tpu_torch.tools import exp_kernel as tk
+from torch_threads import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -34,18 +34,11 @@ from kuiperllama_tpu_torch.ops import linear, sampling
 from kuiperllama_tpu_torch.serving import generate
 from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
 from kuiperllama_tpu_torch.tools import exp_ablate, exp_big, exp_diag, exp_step, route_of
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 PATCHED = [(decoder, "attention_dense"), (decoder, "rmsnorm"), (decoder, "apply_rope"),
            (sampling, "sample_token"), (generate, "sample_token")]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg(**kw):

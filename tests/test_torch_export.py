@@ -16,6 +16,7 @@ from kuiperllama_tpu_torch.checkpoint.hf import load_hf
 from kuiperllama_tpu_torch.config import tiny_config
 from kuiperllama_tpu_torch.params import random_params
 from kuiperllama_tpu_torch.tools import export
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -50,6 +50,7 @@ from kuiperllama_tpu_torch.params import to_device
 from kuiperllama_tpu_torch.serving import generate as tgen
 from kuiperllama_tpu_torch.serving.generate import Generator
 from test_torch_fused_decode import _assert_greedy_equiv, _jax_params
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
 STEPS = 6

@@ -53,6 +53,7 @@ from kuiperllama_tpu_torch.ops.rope import rope_cache
 from kuiperllama_tpu_torch.params import random_params, to_device
 from kuiperllama_tpu_torch.quant import QuantTensor, quantize_q80
 from kuiperllama_tpu_torch.serving.generate import Generator
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
 QUANT_NAMES = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")

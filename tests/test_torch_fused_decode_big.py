@@ -44,6 +44,7 @@ from kuiperllama_tpu_torch.serving import generate as tgen
 from kuiperllama_tpu_torch.serving.generate import Generator
 from test_torch_fused_decode import (_assert_greedy_equiv, _bf16_ulp,
                                      _jax_params, _stand_ins)
+from torch_threads import one_thread  # noqa: F401
 
 DIMS = dict(dim=512, n_heads=4, n_kv_heads=2, hidden_dim=512, vocab_size=256)
 G = 32

@@ -27,6 +27,7 @@ from kuiperllama_tpu_torch.ops.kernels import fused_decode as tfd
 from kuiperllama_tpu_torch.quant import QuantTensor, quantize_q80
 
 import test_torch_fused_decode as tfdt
+from torch_threads import one_thread  # noqa: F401
 
 THREADS = 256
 GRIDS = [1, 8, 33, 132, 264]

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 
 from kuiperllama_tpu.ops.pallas import quant_matmul as jqm
 from kuiperllama_tpu_torch.ops.kernels import quant_matmul as tqm
+from torch_threads import one_thread  # noqa: F401
 
 
 def _bits16(t):

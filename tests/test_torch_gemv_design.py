@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from kuiperllama_tpu.ops.pallas import quant_matmul as jqm
 from kuiperllama_tpu_torch.ops.kernels import quant_matmul as tqm
+from torch_threads import one_thread  # noqa: F401
 
 SMS = 132  # an H100 SXM's streaming multiprocessors
 

@@ -15,6 +15,7 @@ from kuiperllama_tpu_torch.config import tiny_config
 from kuiperllama_tpu_torch.fuse import fuse_params
 from kuiperllama_tpu_torch.params import random_params, to_device
 from kuiperllama_tpu_torch.serving.generate import Generator
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
 PROMPT = [1, 20, 33, 45, 60, 7, 90]

@@ -49,6 +49,7 @@ from kuiperllama_tpu_torch.serving import graphs
 from kuiperllama_tpu_torch.serving.generate import Generator, _stop_array
 
 from test_torch_paged import MAX_LEN, PS, model, prefilled  # noqa: F401
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
 PROMPT = [1, 20, 33, 45, 60, 7, 90]
@@ -56,16 +57,6 @@ FIXTURES = [("tinychar/tinychar.q8.bin", "llama2"),
             ("tinychar_g256/tinychar.q8.bin", "llama2"),
             ("tinychar_qwen2/tinychar.q8.bin", "qwen2")]
 CACHE = 128
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the steps here are many tiny ops, which several
-    test workers' thread pools on the same cores slow a hundredfold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class CpuGraph:

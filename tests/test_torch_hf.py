@@ -31,6 +31,7 @@ from kuiperllama_tpu_torch.checkpoint import hf
 from kuiperllama_tpu_torch.models import decoder
 from kuiperllama_tpu_torch.params import to_device
 from test_model_parity import _hf_llama, _hf_llama32, _hf_qwen2
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = 2e-4  # hf_parity's --atol
 MAKERS = {"llama": _hf_llama, "llama3.2-rope-scaling": _hf_llama32, "qwen2": _hf_qwen2}

@@ -23,6 +23,7 @@ from kuiperllama_tpu.quant import QuantArray
 from kuiperllama_tpu_torch.ops import linear as tlin
 from kuiperllama_tpu_torch.ops.kernels import quant_matmul as tqm
 from kuiperllama_tpu_torch.quant import QuantTensor
+from torch_threads import one_thread  # noqa: F401
 
 # the JAX ops package re-exports a function named `linear`: load the module
 jlin = importlib.import_module("kuiperllama_tpu.ops.linear")

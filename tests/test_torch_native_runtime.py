@@ -19,6 +19,7 @@ from kuiperllama_tpu_torch.config import tiny_config
 from kuiperllama_tpu_torch.params import random_params
 from kuiperllama_tpu_torch.runtime import native
 from kuiperllama_tpu_torch.tokenizer.spm import SentencePieceTokenizer
+from torch_threads import one_thread  # noqa: F401
 
 
 # the port's libraries are built here; without g++ they cannot be

@@ -19,6 +19,7 @@ from kuiperllama_tpu_torch.ops import rope as trope
 from kuiperllama_tpu_torch.ops.rmsnorm import rmsnorm as trmsnorm
 from kuiperllama_tpu_torch.ops.sampling import (filter_logits, sample_greedy,
                                                 sample_token)
+from torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -20,6 +20,7 @@ from kuiperllama_tpu_torch.config import tiny_config
 from kuiperllama_tpu_torch.convert import from_jax_params
 from kuiperllama_tpu_torch.models import paged
 from kuiperllama_tpu_torch.serving.generate import _stop_array
+from torch_threads import one_thread  # noqa: F401
 
 LOGITS_TOL, POOL_TOL = 1e-4, 1e-5
 PS, P, MAX_LEN, SENT = 8, 20, 64, 2 ** 30

@@ -15,6 +15,7 @@ from kuiperllama_tpu.ops.pallas import paged_attention as jpa
 from kuiperllama_tpu_torch import kvcache as tkv
 from kuiperllama_tpu_torch.config import tiny_config
 from kuiperllama_tpu_torch.ops.kernels import paged_attention as tpa
+from torch_threads import one_thread  # noqa: F401
 
 ATOL, RTOL = 2e-5, 1e-4  # tests/test_paged_attention.py's own
 

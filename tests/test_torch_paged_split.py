@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from kuiperllama_tpu.ops.pallas import paged_attention as jpa
 from kuiperllama_tpu_torch.ops.kernels import paged_attention as tpa
+from torch_threads import one_thread  # noqa: F401
 
 
 def split_then_merge(q, kp, vp, fb, fp, ft, n_items, sl, ps, layer):

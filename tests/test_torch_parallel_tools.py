@@ -18,6 +18,7 @@ from kuiperllama_tpu_torch.config import preset_config
 from kuiperllama_tpu_torch.parallel.collectives import analytic_decode_bill
 from kuiperllama_tpu_torch.tools import scaling, seqpar_bytes
 from test_torch_exp_kernel import load_jax_tool
+from torch_threads import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

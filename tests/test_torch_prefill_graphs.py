@@ -45,6 +45,7 @@ from kuiperllama_tpu_torch.serving.generate import Generator
 
 from test_torch_graphs import (FIXTURES, ROOT, CpuGraph, _port_model,  # noqa: F401
                                counting, one_thread)
+from torch_threads import one_thread  # noqa: F401
 
 REL = 1e-5
 CPU = torch.device("cpu")

@@ -36,6 +36,7 @@ from test_torch_exp_kernel import load_jax_tool
 from kuiperllama_tpu_torch.ops.kernels import build
 from kuiperllama_tpu_torch.tools import exp_kernel as ek
 from kuiperllama_tpu_torch.tools import probe_costs as pc
+from torch_threads import one_thread  # noqa: F401
 
 SMS = (1, 8, 33, 132)
 BN, G, SUB = ek.OUTSCALE_BN, ek.G, 16

@@ -37,16 +37,9 @@ from kuiperllama_tpu_torch.tools import chain_time, profile2, profile_decode, pr
 
 from test_torch_graphs import CpuGraph
 from test_torch_paged import MAX_LEN, _decode_both, model, prefilled  # noqa: F401
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg():

@@ -13,6 +13,7 @@ from kuiperllama_tpu.utils import profiling as jp
 from test_torch_exp_kernel import load_jax_tool
 from kuiperllama_tpu_torch.tools import roofline as tr
 from kuiperllama_tpu_torch.utils import profiling as tp
+from torch_threads import one_thread  # noqa: F401
 
 
 def _timer(mod, totals, counts):

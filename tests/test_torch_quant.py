@@ -9,6 +9,7 @@ import jax.numpy as jnp
 
 from kuiperllama_tpu import quant as jq
 from kuiperllama_tpu_torch import quant as tq
+from torch_threads import one_thread  # noqa: F401
 
 
 def test_torch_round_is_half_to_even():

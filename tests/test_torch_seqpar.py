@@ -23,6 +23,7 @@ from kuiperllama_tpu_torch.ops.kernels.paged_attention import (build_work_list,
                                                                merge_flash_many,
                                                                merge_flash_parts)
 from kuiperllama_tpu_torch.parallel.seqpar import build_work_lists_sharded
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

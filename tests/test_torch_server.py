@@ -20,6 +20,7 @@ from kuiperllama_tpu_torch.convert import from_jax_params
 from kuiperllama_tpu_torch.errors import InvalidArgument
 from kuiperllama_tpu_torch.serving.engine import PagedEngine, Request
 from kuiperllama_tpu_torch.serving.server import InferenceServer, make_http_server
+from torch_threads import one_thread  # noqa: F401
 
 PROMPTS = [[1, 5, 9], [2, 3, 4, 4], [7, 7], [11, 2, 3, 5]]
 NEW = 6

@@ -25,6 +25,7 @@ from kuiperllama_tpu_torch.errors import InvalidArgument
 from kuiperllama_tpu_torch.serving.engine import Engine, PagedEngine, Request
 from kuiperllama_tpu_torch.serving.server import (EngineFailed, InferenceServer,
                                                   make_http_server)
+from torch_threads import one_thread  # noqa: F401
 
 
 class _StubEngine:

@@ -28,6 +28,7 @@ from kuiperllama_tpu.parallel.mesh import make_mesh
 from kuiperllama_tpu.quant import quantize_q80
 from kuiperllama_tpu.serving.engine import PagedEngine
 from kuiperllama_tpu.serving.server import InferenceServer
+from torch_threads import one_thread  # noqa: F401
 
 PROMPTS = [[1, 5, 9], [2, 3], [7, 7, 7, 7], [4, 11]]
 NEW = 9

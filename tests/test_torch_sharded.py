@@ -24,6 +24,7 @@ from kuiperllama_tpu.quant import quantize_q80
 from kuiperllama_tpu.serving.generate import Generator as JGenerator
 from kuiperllama_tpu_torch.config import preset_config
 from kuiperllama_tpu_torch.parallel.shardings import validate_tp
+from torch_threads import one_thread  # noqa: F401
 
 CFG = dict(family="llama2", n_heads=8, n_kv_heads=4, dim=128, hidden_dim=128,
            vocab_size=256, seq_len=64)

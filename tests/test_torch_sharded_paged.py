@@ -15,6 +15,7 @@ from kuiperllama_tpu.ops.linear import set_use_pallas
 from kuiperllama_tpu.params import random_params, to_device
 from kuiperllama_tpu.quant import quantize_q80
 from kuiperllama_tpu.serving.engine import PagedEngine, Request
+from torch_threads import one_thread  # noqa: F401
 
 PROMPTS = [[1, 5, 9], [2, 3], [7, 7, 7, 7], [4, 11]]
 ENGINE = dict(max_batch=2, max_len=64, chunk=4, page_size=128)

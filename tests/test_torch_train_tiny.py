@@ -37,6 +37,7 @@ from kuiperllama_tpu_torch.models import decoder
 from kuiperllama_tpu_torch.params import random_params
 from kuiperllama_tpu_torch.tools import train_tiny as tt
 from test_torch_exp_kernel import load_jax_tool
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 TOL = 1e-5
