@@ -57,8 +57,10 @@ last line:
      Llama-2-7B g 256 with fp32 scales and Llama-3-8B g 64 (BIG_CASES), full
      width and 2 layers, one step at pos 100 in a 256-slot window: error,
      CUDA-event times of the kernel and the plain version, the byte bound,
-     and us per phase per layer from one traced launch beside each phase's
-     byte time.
+     us per phase per layer from one traced launch beside each phase's
+     byte time, the walk's plan (items, splits, column threads, flushes per
+     step) and the compiled kernel's registers and local bytes, held to at
+     most BIG_REGISTERS and BIG_LOCAL_BYTES.
   4c. chunk kernel: the greedy chunk megakernel against its plain version on
      the card at TinyLlama-1.1B INT8 g 256, Qwen2.5-0.5B bf16 and
      Llama-3.2-1B INT8 g 256 (CHUNK_CASES), 2 layers, CHUNK_STEPS steps from
@@ -286,6 +288,9 @@ FIXTURE = "checkpoints/tinychar/tinychar.q8.bin"
 FUSED_TOL = {("2 layers", False): 2e-2, ("2 layers", True): 5e-2,
              ("full depth", False): 5e-2, ("full depth", True): 1e-1}
 FUSED_LAYERS, FUSED_POS, FUSED_WINDOW, CACHE_LEN = 2, 100, 256, 1024
+# the big megakernel at two blocks an SM: at most 128 registers a thread and
+# this many local (spilled) bytes, so that an edit cannot add spills unseen
+BIG_REGISTERS, BIG_LOCAL_BYTES = 128, 16
 # megakernel geometries: (label, preset, INT8, group size)
 FUSED_CASES = [("tinyllama-1.1b", "tinyllama-1.1b", True, 256),
                ("llama3.2-1b", "llama3.2-1b", True, 256),
@@ -1814,7 +1819,9 @@ def phase_fused_big_kernel(dev):
     """The big-model megakernel against its plain version on the card, at
     full width and FUSED_LAYERS layers of each BIG_CASES geometry, one step
     at pos 100 in a 256-slot window: errors, CUDA-event times of the kernel
-    and the plain version, the byte bound and us per phase from the trace."""
+    and the plain version, the byte bound, us per phase from the trace, and
+    the compiled kernel's registers and local bytes (held to BIG_REGISTERS
+    and BIG_LOCAL_BYTES)."""
     from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
     from kuiperllama_tpu_torch.ops.tuning import BIG_INT8
 
@@ -1830,16 +1837,21 @@ def phase_fused_big_kernel(dev):
                               flags=(BIG_INT8,) * 4)
         times = time_big_step(cfg, params, x0, full_k[:, :A], full_v[:, :A], p,
                               sin, cos, [(params,), (_clone_blocks(params),)], 5)
+        ptxas = fb.kernel_attributes()
+        ptxas_ok = (ptxas["registers"] <= BIG_REGISTERS
+                    and ptxas["local_bytes"] <= BIG_LOCAL_BYTES)
         row = dict(phase="kernel", kernel="fused_decode_big", model=label,
                    layers=FUSED_LAYERS, group_size=g,
-                   scales="bf16" if s_bf16 else "fp32", plan=plan, pos=FUSED_POS,
-                   window=A, **check, **times, card=CARD)
+                   scales="bf16" if s_bf16 else "fp32", plan=plan,
+                   walk=fb.fused_decode_step_big.plan, ptxas=ptxas, ptxas_ok=ptxas_ok,
+                   pos=FUSED_POS, window=A, **check, **times, card=CARD)
         emit(row)
         rows.append(row)
         del params, full_k, full_v
-        if not (check["ok"] and plan is not None):
+        if not (check["ok"] and plan is not None and ptxas_ok):
             raise AssertionError(f"fused_decode_big disagrees with its plain "
-                                 f"version: {row}")
+                                 f"version or exceeds its registers or local "
+                                 f"bytes: {row}")
     return rows
 
 
@@ -2282,7 +2294,8 @@ def phase_big_main_path(dev):
               device_busy_ms_per_step=prof["device_busy_ms_per_step"],
               device_idle_share_unprofiled=idle_share(prof, ms_per_token),
               peak_memory_bytes=peak, init_s=init_s, launches=launches,
-              launches_expected=expect, ok=ok, card=CARD))
+              launches_expected=expect, big_walk=fb.fused_decode_step_big.plan,
+              big_ptxas=fb.kernel_attributes(), ok=ok, card=CARD))
     if not ok:
         raise AssertionError("Llama-2-7B big-route main path failed its checks")
 
@@ -2294,7 +2307,8 @@ def phase_big_main_path(dev):
     times = time_big_step(cfg, params, x0, full_k[:, :A], full_v[:, :A], p, sin,
                           cos, [(params,)], 1)
     step = dict(phase="fused_big_step", model="llama2-7b g64", layers=cfg.n_layers,
-                pos=FUSED_POS, window=A, **check, **times, card=CARD)
+                pos=FUSED_POS, window=A, walk=fb.fused_decode_step_big.plan,
+                ptxas=fb.kernel_attributes(), **check, **times, card=CARD)
     emit(step)
     if not (check["ok"] and all(t > 0 for t in times["traced_phase_us_per_layer"].values())):
         raise AssertionError("fused_decode_big disagrees with its plain version "

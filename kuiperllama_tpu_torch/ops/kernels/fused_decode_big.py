@@ -28,17 +28,27 @@ no plan there; group 64, or fp32 scales, plan.
 
 On the CPU `fused_decode_step_big` runs the plain version; on a CUDA tensor
 it launches the kernel or raises. `fused_decode_step_big.launches` counts
-launches.
+launches; `.plan` holds the last launch's `walk_summary`.
+
+Scratch (ops/kernels/workspace.py): the kernel's phases that may overlap
+(wo after qkv, w2 after gate/up: completion flags, not grid barriers,
+separate them) keep their split partials and counters apart, the
+completion flags follow the split counters, and the residual stream takes
+two d-float buffers. The CUDA source alone knows that layout: its C entry
+`fused_decode_big_scratch` gives the sizes the wrapper allocates. The
+kernel leaves counters and flags at zero.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ...quant import QuantTensor
 from ..tuning import BIG_INT8
+from . import build
 from . import fused_decode as fd
 
 SOURCE = "fused_decode_big"
@@ -131,14 +141,73 @@ def fused_decode_step_big_ref(cfg, params, x0, k_cache, v_cache, pos, sin,
     return xo.reshape(1, -1).to(x0.dtype), k_cache, v_cache
 
 
+def _scratch_sizes(a) -> tuple:
+    """(fp32 partials, counter words, residual floats) of a launch with the
+    filled `_Args` a, from the kernel's `fused_decode_big_scratch`."""
+    fn = build.entry(SOURCE, "fused_decode_big_scratch",
+                     [ctypes.POINTER(fd._Args)] + [ctypes.POINTER(ctypes.c_int)] * 3)
+    out = [ctypes.c_int(0) for _ in range(3)]
+    rc = fn(ctypes.byref(a), *(ctypes.byref(v) for v in out))
+    if rc != 0:
+        raise ValueError("fused_decode_step_big: the plan's column tiles or the "
+                         f"model's {a.H} heads exceed the kernel's split counters "
+                         f"and flags (CUDA error {rc})")
+    return tuple(v.value for v in out)
+
+
+@functools.lru_cache(maxsize=64)
+def _flushes(g: int, phases: tuple) -> int:
+    """The flushes of one layer; phases: each GEMV phase's (K, halves, column
+    threads, units per split, column tiles, int8 activation). Cached: a
+    launch's plan repeats every step, and the count walks every lane."""
+    qpg, flushes = g // 4, 0
+    for K, halves, ct, ups, tiles, int8 in phases:
+        klanes, per_tile = fd._THREADS // ct, 0
+        for sp in range(-(-(K // g) // ups)):
+            row0, row1 = sp * ups * g, min(K, (sp + 1) * ups * g)
+            if not int8:
+                per_tile += klanes * (row1 - row0) // g
+                continue
+            base, nq = row0 // 4, (row1 - row0) // 4
+            for kl in range(klanes):
+                c0, c1 = base + kl * nq // klanes, base + (kl + 1) * nq // klanes
+                if c1 > c0:
+                    per_tile += (c1 - 1) // qpg - c0 // qpg + 1
+        flushes += per_tile * ct * halves * tiles
+    return flushes
+
+
+def walk_summary(a, device) -> dict:
+    """`fused_decode.plan_summary` of a big-kernel launch's `_Args`, with
+    each GEMV phase's work items and the step's flushes: the times a lane
+    scales its sums into its accumulators. With int8 activations a k-lane
+    walks a contiguous run of its split's quads and flushes once per group
+    the run touches (csrc/fused_decode_big.cu `lane_run`, `stream_int8`);
+    with bf16 activations every k-lane flushes once per group of the
+    split."""
+    out = fd.plan_summary(a, device)
+    phases = []
+    for i, (name, K, halves) in enumerate((("qkv", a.d, 1), ("wo", a.H * a.hd, 1),
+                                           ("gate_up", a.d, 2), ("w2", a.hidden, 1))):
+        ph = out["phases"][name]
+        ph["items"] = ph["tiles"] * ph["splits"]
+        phases.append((K, halves, a.col_threads[i], a.units_per_split[i], ph["tiles"],
+                       bool(a.int8_act[i])))
+    out["flushes_per_step"] = _flushes(a.g, tuple(phases)) * a.L
+    return out
+
+
 def fused_decode_step_big(cfg, params, x0, k_cache, v_cache, pos, sin, cos,
-                          int8_a=None, trace=None):
+                          int8_a=None, trace=None, grid=None):
     """One decode step of the whole layer stack for B = 1 at big-model
     geometry (see the module docstring). CPU tensors take the plain version;
     CUDA tensors launch csrc/fused_decode_big.cu once, or raise.
 
     trace: optional int64 CUDA tensor of 2 + 5 L elements, filled as the
-    small kernel fills it (`fused_decode.phase_times` reads it)."""
+    small kernel fills it (`fused_decode.phase_times` reads it). grid: the
+    launch's blocks (tests run blocks that take several items; default
+    every block that fits, at most two per SM). `fused_decode_step_big.plan`
+    holds the last launch's `walk_summary`."""
     if x0.device.type == "cpu":
         return fused_decode_step_big_ref(cfg, params, x0, k_cache, v_cache,
                                          pos, sin, cos, int8_a)
@@ -157,12 +226,33 @@ def fused_decode_step_big(cfg, params, x0, k_cache, v_cache, pos, sin, cos,
         who, cfg, params, x0, k_cache, v_cache, pos, sin, cos, (int8_a,) * 4,
         lambda kind, smem: fd.blocks_per_sm(SOURCE, occ, x0.device,
                                             int(int8_a), smem),
-        trace=trace)
+        trace=trace, grid=grid)
+    parts, words, x_floats = _scratch_sizes(a)
+    a.partial = fd._ws(x0.device, "partial", parts, torch.float32).data_ptr()
+    a.counters = fd._ws(x0.device, "counters", words, torch.int32, zero=True).data_ptr()
+    a.x = fd._ws(x0.device, "x", x_floats, torch.float32).data_ptr()
     rc = launch(ctypes.byref(a), torch.cuda.current_stream(x0.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{who}: cooperative launch failed, CUDA error {rc}")
     fused_decode_step_big.launches += 1
+    fused_decode_step_big.plan = walk_summary(a, x0.device)
     return x_out, k_cache, v_cache
 
 
 fused_decode_step_big.launches = 0
+fused_decode_step_big.plan = None
+
+
+def kernel_attributes(int8_a=None) -> dict:
+    """The compiled kernel variant's registers a thread and local-memory
+    bytes a thread (where ptxas spills), from cudaFuncGetAttributes. Needs
+    the card."""
+    fn = build.entry(SOURCE, "fused_decode_big_attributes",
+                     [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                      ctypes.POINTER(ctypes.c_int)])
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    variant = int(BIG_INT8 if int8_a is None else bool(int8_a))
+    rc = fn(variant, ctypes.byref(regs), ctypes.byref(local))
+    if rc != 0:
+        raise RuntimeError(f"fused_decode_big: attribute query failed, CUDA error {rc}")
+    return dict(registers=regs.value, local_bytes=local.value)

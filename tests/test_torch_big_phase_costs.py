@@ -1,6 +1,7 @@
 """The big-kernel phase-cost probe (tools/big_phase_costs.py) on the CPU:
-each variant's replacement still applies to csrc/fused_decode_big.cu, once,
-and changes only what it names; without a card the probe exits."""
+each variant's replacements still apply to csrc/fused_decode_big.cu and its
+header as often as they say, and change only what they name; without a
+card the probe exits."""
 
 import pytest
 
@@ -9,15 +10,22 @@ from kuiperllama_tpu_torch.tools import big_phase_costs as bpc
 
 @pytest.mark.parametrize("name", [n for n in bpc.VARIANTS if n != "kernel"])
 def test_variant_applies_once(name):
-    src = bpc.variant_source("kernel")
-    out = bpc.variant_source(name)
-    old, new = bpc.VARIANTS[name]
-    assert src.count(old) == 1 and out != src
-    assert out.count(old) == 0 and len(out.splitlines()) <= len(src.splitlines())
+    src = bpc.sources()
+    out = bpc.variant_files(name, src)
+    for f, old, new, n in bpc.SUBSTITUTIONS[name]:
+        assert src[f].count(old) == n and out[f] != src[f]
+        assert out[f].count(old) == 0 or old in new
+    for f in bpc.FILES:
+        assert len(out[f].splitlines()) <= len(src[f].splitlines())
+    # a piece missing from the source is an error, not a silent no-op
+    f, old = bpc.SUBSTITUTIONS[name][0][:2]
+    with pytest.raises(ValueError):
+        bpc.substitutions(name, dict(src, **{f: src[f].replace(old, "")}))
 
 
 def test_variants_differ():
-    outs = {bpc.variant_source(n) for n in bpc.VARIANTS}
+    src = bpc.sources()
+    outs = {tuple(bpc.variant_files(n, src).values()) for n in bpc.VARIANTS}
     assert len(outs) == len(bpc.VARIANTS)
 
 

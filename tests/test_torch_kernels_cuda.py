@@ -410,6 +410,67 @@ def test_fused_big_matches_plain(dev, family, s_bf16, int8_a, cache, pos):
     assert torch.equal(x2, x) and torch.equal(k2, k)
 
 
+# At a forced small grid a block takes several items of a phase, so its
+# warps walk several splits and it stages more than once a phase; held as
+# at the default grid, bit for bit again.
+@pytest.mark.parametrize("grid", [8, 33])
+@pytest.mark.parametrize("int8_a", [True, False])
+def test_fused_big_small_grid(dev, grid, int8_a):
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
+
+    cfg, params = _big_case(dev, "llama2", True, g=64, dim=1024, hidden=2816,
+                            heads=8, kv_heads=4)
+    kernel = lambda *a: fb.fused_decode_step_big(*a, int8_a=int8_a, grid=grid)
+    plain = lambda *a: fb.fused_decode_step_big_ref(*a, int8_a=int8_a)
+    x, k, v = _fused_run(cfg, params, dev, 37, 256, 512, torch.bfloat16, kernel)
+    torch.cuda.synchronize()
+    assert fb.fused_decode_step_big.plan["grid"] == grid
+    xr, kr, vr = _fused_run(cfg, params, dev, 37, 256, 512, torch.bfloat16, plain)
+    assert torch.isfinite(x.float()).all() and _rel(x, xr) <= 1e-2
+    for got, want in ((k, kr), (v, vr)):
+        assert torch.equal(got[:, :37], want[:, :37])
+        assert _rel(got[:, 37], want[:, 37]) <= 1e-2
+    x2, k2, _ = _fused_run(cfg, params, dev, 37, 256, 512, torch.bfloat16, kernel)
+    assert torch.equal(x2, x) and torch.equal(k2, k)
+    # the split counters and completion flags are left at zero for the next
+    # launch: the whole counter buffer, at the size the kernel asked for
+    from kuiperllama_tpu_torch.ops.kernels import workspace
+
+    counters = workspace.scratch(dev, "fused_counters", 1, torch.int32, zero=True)
+    assert int(counters.count_nonzero()) == 0
+
+
+def test_fused_big_scratch_layout(dev):
+    """The kernel's own scratch sizes (`fused_decode_big_scratch`): the
+    residual's two buffers, wo's and w2's split partials past qkv's and
+    gate/up's, room for every tile's counter; a plan with more column tiles
+    than the counters hold is refused."""
+    from kuiperllama_tpu_torch.models import decoder
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode as fd
+    from kuiperllama_tpu_torch.ops.kernels import fused_decode_big as fb
+
+    cfg, params = _big_case(dev, "llama2", True, g=64, dim=1024, hidden=2816,
+                            heads=8, kv_heads=4)
+    x0 = params["tok_emb"][:1].to(torch.bfloat16).contiguous()
+    kc = torch.zeros((cfg.n_layers, 256, cfg.kv_dim), dtype=torch.bfloat16, device=dev)
+    sin, cos = decoder.build_rope(cfg, dev)
+    p = torch.tensor([3], dtype=torch.int32, device=dev)
+    a, _, _ = fd.step_args("test", cfg, params, x0, kc, kc.clone(), p, sin, cos,
+                           (True,) * 4, lambda kind, smem: 2, grid=8)
+    parts, words, x_floats = fb._scratch_sizes(a)
+    phases = fb.walk_summary(a, dev)["phases"]
+    cols = dict(qkv=cfg.n_heads * cfg.head_dim + 2 * cfg.kv_dim, wo=cfg.dim,
+                gate_up=2 * cfg.hidden_dim, w2=cfg.dim)
+    split = {n: ph["splits"] * cols[n] if ph["splits"] > 1 else 0
+             for n, ph in phases.items()}
+    assert parts == max(split["qkv"], split["gate_up"]) + max(split["wo"], split["w2"])
+    assert parts > 0 and x_floats == 2 * cfg.dim
+    assert words >= 2 * max(ph["tiles"] for ph in phases.values()) + cfg.n_heads
+    a.col_threads[0] = 0
+    with pytest.raises(ValueError, match="split counters"):
+        fb._scratch_sizes(a)
+
+
 @pytest.mark.parametrize("g", [64, 128])
 def test_fused_big_wide(dev, g):
     """TinyLlama-1.1B width (d / g = 32 and 16), held to the plain version
