@@ -418,6 +418,8 @@ GEMV_SHAPES = [("wqkv", 4096, 12288, 32), ("wo", 4096, 4096, 32),
                ("w13", 4096, 22016, 32), ("w2", 11008, 4096, 32),
                ("lm_head", 4096, 32000, 1)]
 PREFILL_M = 32
+# the GEMM's rows past the prefill and engine ones, at the four 7B shapes
+GEMM_LARGE_M = (64, 128, 192, 256)
 # the prefill rows: a 32-token prompt (the GEMM's bucket) and a 256-token one
 # (ops/linear.py PREFILL_DEQUANT_ROWS: the dequantized matmul), each key's
 # first call apart from the median of PREFILL_WARM warm calls
@@ -514,6 +516,19 @@ def check_kernel(kind, dev, M, K, N, g, mode, seed, name="", scales="bfloat16"):
     library_ms = device_time(torch.matmul, variants=lib_variants, device="cuda") * 1e3
     bytes_ms, ops_ms = bound(M, K, N, g, 2, sb.element_size(), 2,
                              "bf16" if mode == "fast" else "fp32")
+    extra = {}
+    if kind == "quant_gemm":
+        extra = gemm_routes(xb, q, sb, g, mode, want, variants)
+        ok = ok and extra["routes_ok"]
+    if kind == "quant_gemm" and M >= 256:
+        # the route ops/linear.py gives PREFILL_DEQUANT_ROWS rows and more, as
+        # data only
+        from kuiperllama_tpu_torch.ops.linear import _dequant_dot
+        from kuiperllama_tpu_torch.quant import QuantTensor
+
+        extra["dequant_dot_ms"] = device_time(
+            lambda x, q, s: _dequant_dot(x, QuantTensor(q=q, s=s, group_size=g)),
+            variants=variants, device="cuda") * 1e3
     del qs, variants, wd, lib_variants
     row = dict(phase="kernel", kernel=kind, weight=name, M=M, K=K, N=N, g=g,
                mode=mode, scales=scales,
@@ -521,11 +536,40 @@ def check_kernel(kind, dev, M, K, N, g, mode, seed, name="", scales="bfloat16"):
                max_abs_err=abs16, ok=ok, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms, card=CARD)
+               bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms, **extra, card=CARD)
     emit(row)
     if not ok:
         raise AssertionError(f"{kind} disagrees with its plain version: {row}")
     return row
+
+
+def gemm_routes(xb, q, sb, g, mode, want, variants):
+    """The GEMM's route at these operands and, where it is the wgmma route,
+    both routes through `gemm_launch` in interleaved rounds (mma_sync,
+    wgmma, wgmma, mma_sync: us a call), each held against the plain
+    version first, and the wgmma kernel's geometry."""
+    import torch
+
+    from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
+    from kuiperllama_tpu_torch.utils.profiling import device_time
+
+    route = qm.gemm_route(xb, q, sb, g, mode)
+    out = dict(route=route, routes_ok=True)
+    if route != "wgmma":
+        return out
+    M, (K, N) = xb.shape[0], q.shape
+    launch = {r: (lambda x, q, s, r=r: qm.gemm_launch(x, q, s, g, r)) for r in qm.GEMM_ROUTES}
+    errs = {r: rel_err(fn(xb, q, sb), want) for r, fn in launch.items()}
+    us = {r: [] for r in qm.GEMM_ROUTES}
+    for r in ("mma_sync", "wgmma", "wgmma", "mma_sync"):
+        us[r].append(device_time(launch[r], variants=variants, device="cuda") * 1e6)
+    sms = torch.cuda.get_device_properties(xb.device).multi_processor_count
+    kps = qm.gemm_wgmma_plan(M, K, N, sms)
+    out.update(interleaved_us=us, route_rel_err=errs, routes_ok=all(
+        e <= BF16_ULP for e in errs.values()), wgmma_splits=-(-K // kps),
+        wgmma_geometry=qm.wgmma_geometry(M, K, g, sb.dtype == torch.bfloat16, kps),
+        mma_sync_splits=-(-K // qm.gemm_k_per_split(M, K, N, sms)))
+    return out
 
 
 def gemv_variants(dev, g=256):
@@ -582,10 +626,29 @@ def phase_kernels(dev):
                      SEED + 60 + i, name)
     for M in (2, 255):
         check_kernel("quant_gemm", dev, M, 4096, 12288, 256, "fast", SEED + 30 + M)
+    # the wgmma route's larger M: one block covers every row of its columns
+    for M in GEMM_LARGE_M:
+        for i, (name, K, N, _) in enumerate(GEMV_SHAPES[:4]):
+            check_kernel("quant_gemm", dev, M, K, N, 256, "fast", SEED + 70 + M + i, name)
     for M in (2, 32, 255):
         check_kernel("quant_gemm", dev, M, 4096, 4096, 256, "exact", SEED + 40 + M)
     check_kernel("quant_gemm", dev, 1, 11008, 4096, 64, "fast", SEED + 50)
+    wgmma_attributes_row()
     return gemv, gemm
+
+
+def wgmma_attributes_row():
+    """The wgmma kernels' registers and local bytes (cudaFuncGetAttributes),
+    one kernel for each wgmma N of 8 to 256: fails on any local memory (a
+    spill)."""
+    from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
+
+    attrs = {rows: qm.wgmma_attributes(rows) for rows in range(8, 257, 8)}
+    ok = all(a["local_bytes"] == 0 for a in attrs.values())
+    emit(dict(phase="kernel_attributes", kernel="quant_gemm wgmma", by_rows=attrs,
+              ok=ok, card=CARD))
+    if not ok:
+        raise AssertionError(f"the wgmma kernels use local memory: {attrs}")
 
 
 def phase_fixture(dev):
@@ -708,6 +771,7 @@ def prefill_route(gen, prompt, graphs):
         rows, prefill_s, _ = run()
         ms.append(prefill_s * 1e3)
     launches = read_launches()
+    wgmma = on_wgmma(launches)
     logits = g.prefill_logits[1].clone()
     by_name, wall_ms = device_profile(run)
     busy = sum(t for t, _ in by_name.values())
@@ -717,7 +781,7 @@ def prefill_route(gen, prompt, graphs):
                   device_idle_share=1 - busy / warm if by_name else "not measured",
                   kernels_profiled=sum(n for _, n in by_name.values()),
                   wall_ms_profiled=wall_ms, top_kernels=top_kernels(by_name, 1),
-                  launches=launches,
+                  launches=launches, gemm_on_wgmma=wgmma,
                   graphs=graph_stats(g.graph_cache) if g.graphs_on() else None)
     return fields, rows[0][0], logits, g.graphs_on()
 
@@ -750,6 +814,7 @@ def phase_prefill(label, gen):
         logits_equal = bool(torch.equal(g_logits, e_logits))
         ok = (took and g_tok == e_tok and logits_equal
               and g["launches"] == expect and e["launches"] == expect
+              and g["gemm_on_wgmma"] and e["gemm_on_wgmma"]
               and st.get("n_prefill_captures") == 1
               and st.get("n_prefill_recaptures") == 0
               and st.get("n_prefill_replays") == PREFILL_WARM + 1
@@ -1551,18 +1616,19 @@ def phase_engine_main_path(dev, label, preset, prefill_chunk=0, long_prompt=0,
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = read_launches()
+        wgmma = on_wgmma(launches)
         steps, prefills = eng.n_decode_steps, eng.n_prefill_calls
         expect = dict(NO_LAUNCHES, paged_attention=L * steps,
                       quant_gemm=steps * (4 * L + 1) + prefills)
         generated = sum(len(r.out_ids) for r in reqs)
         ttft = sorted(r.ttft_s for r in reqs)
         out = dict(eng=eng, reqs=reqs, wall_s=wall_s, launches=launches,
-                   ttft=ttft, warm_graphs=warm,
+                   gemm_on_wgmma=wgmma, ttft=ttft, warm_graphs=warm,
                    expect=expect, peak=torch.cuda.max_memory_allocated(dev),
                    steps=steps, prefills=prefills, preemptions=eng.n_preemptions,
                    prefill_wall_s=eng.prefill_wall_s,
                    graphs=graph_stats(eng.graph_cache),
-                   ok=(len(done) == ENGINE_REQUESTS and launches == expect
+                   ok=(len(done) == ENGINE_REQUESTS and launches == expect and wgmma
                        and generated == ENGINE_REQUESTS * ENGINE_NEW))
         return out
 
@@ -2202,9 +2268,17 @@ def zero_launches():
     from kuiperllama_tpu_torch.tools import exp_kernel as ek
 
     qm.quant_gemv.launches = qm.quant_gemm.launches = 0
+    qm.quant_gemm.wgmma_launches = qm.quant_gemm.x_roundings = 0
     fd.fused_decode_step.launches = fd.fused_decode_chunk.launches = 0
     fb.fused_decode_step_big.launches = pa.paged_attention_flat.launches = 0
     ek.exp_stream.launches = ek.exp_outscale.launches = ei.exp_int8.launches = 0
+
+
+def on_wgmma(launches) -> bool:
+    """Whether every GEMM launch since zero_launches took the wgmma route."""
+    from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
+
+    return qm.quant_gemm.wgmma_launches == launches["quant_gemm"]
 
 
 def read_launches():
@@ -2415,6 +2489,7 @@ def phase_ppl(dev):
         card = gate(os.path.join(HERE, ckpt), device=dev, **args)
         seconds = time.perf_counter() - t0
         got = read_launches()
+        wgmma = on_wgmma(got)
         cfg, raw = load_bin(qpath or os.path.join(HERE, ckpt), family=family)
         per_window = (len(PROJECTIONS) * cfg.n_layers
                       + bool(qpath and is_quant_leaf(raw["lm_head"])))
@@ -2422,7 +2497,7 @@ def phase_ppl(dev):
                       * per_window)
         errs = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in ("ppl_fp", "ppl_int8")}
         errs["delta"] = abs(card["delta"] - cpu["delta"])
-        ok = (got == expect and card["passes_gate"] and cpu["passes_gate"]
+        ok = (got == expect and wgmma and card["passes_gate"] and cpu["passes_gate"]
               and card["kernel_mode"] == "cuda-gemm-fast"
               and max(errs["ppl_fp"], errs["ppl_int8"]) <= PPL_TOL["ppl"]
               and errs["delta"] <= PPL_TOL["delta"]
@@ -2436,7 +2511,8 @@ def phase_ppl(dev):
                   committed=committed, committed_delta=ref["delta"],
                   committed_kernel_mode=ref["kernel_mode"], held_delta=want_delta,
                   delta_minus_held=card["delta"] - want_delta, seconds=seconds,
-                  launches=got, launches_expected=expect, ok=ok, card=CARD))
+                  launches=got, launches_expected=expect, gemm_on_wgmma=wgmma, ok=ok,
+                  card=CARD))
         if not ok:
             raise AssertionError(f"perplexity gate failed its checks ({label})")
         for k, v in got.items():
@@ -3046,6 +3122,7 @@ def par_run_engine(eng, vocab, long_prompt, dev):
                prefill_wall_s=eng.prefill_wall_s, preemptions=eng.n_preemptions,
                finished=len(done), launches=read_launches(), bill=collectives.bill(),
                chunks=chunks, peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+    out["gemm_on_wgmma"] = on_wgmma(out["launches"])
     if eng._sharded is not None:
         eng._sharded.run_chunk = run
     out["prefill_logits"] = par_prefill_logits(eng, reqs[0].prompt_ids)
@@ -3331,6 +3408,7 @@ def phase_parallel(dev):
                           and g["all_gather.launches"] == 1 for g in captured_prefill))
     same = c["out_ids"] == eng_single["out_ids"]
     ok = (same and replay_ok and prefill_ok and c["launches"] == eng_single["launches"]
+          and c["gemm_on_wgmma"] and eng_single["gemm_on_wgmma"]
           and c["steps"] == eng_single["steps"] and graphs["n_captures"] >= 1
           and np.array_equal(c["prefill_logits"], eng_single["prefill_logits"]))
     emit(dict(phase="parallel", row="c", what="PagedEngine through ShardedPagedStep, "
@@ -3499,6 +3577,7 @@ def par_engine_row(cfg, params, row, outs, single, dev, seqpar):
                                                  for o in outs),
             prefill_logits_max_rel_err=err, limit=PAR_EXACT_TOL))
     ok = (agree["tokens_ok"] and chunks_ok and all(o["launches"] == want_l for o in outs)
+          and all(o["gemm_on_wgmma"] for o in outs)
           and logit_err <= FUSED_TOL[("full depth", False)]
           and (not seqpar or (exact["exact_run"]["tokens_equal_single"]
                               and exact["exact_run"]["prefill_logits_max_rel_err"]

@@ -9,7 +9,14 @@ says what bounds it on the card and how its design deals with that.
 
 Each wrapper takes its plain version for a tensor that lies on the CPU, and
 for a CUDA tensor it launches its kernel or raises: there is no fallback.
-`quant_gemv.launches` and `quant_gemm.launches` count kernel launches.
+`quant_gemv.launches` and `quant_gemm.launches` count kernel launches. The
+GEMM's fast mode has two kernels, chosen by shape before the launch
+(`gemm_route`): the wgmma route (TMA, an mbarrier ring and wgmma, every
+weight byte read and dequantized once per call) for every aligned shape of
+the supported models, counted again in `quant_gemm.wgmma_launches`, and
+the mma.sync route for the rest. The wgmma kernel takes bf16 x: an fp32 x
+is rounded to bf16 first, one more launch, counted in
+`quant_gemm.x_roundings`.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from . import build, workspace
 GEMV_SOURCE = "quant_gemv"
 GEMM_SOURCE = "quant_gemm"
 MODES = ("fast", "exact")
+GEMM_ROUTES = ("wgmma", "mma_sync")
 
 # The GEMV stages bf16(x) for its K range in shared memory as fp32; this cap
 # keeps that stage plus the 2 KB warp reduction under the 48 KB of static
@@ -43,6 +51,20 @@ _GEMM_BN = 128
 _GEMM_BK = 64
 _GEMM_BLOCKS_PER_SM = 3
 _GEMM_MIN_SPLIT_K = 256
+# The wgmma route: 128 weight columns of every row (at most 256) per block,
+# 64 K rows per ring stage; rows round up to 8 (wgmma's N). Its plan weighs
+# whole waves of blocks (two an SM up to 64 rows, else one) against the
+# fp32 partials a split writes and the split sum re-reads, by the card's
+# data-sheet rates, a fixed ring fill per wave and the sum's launch.
+_WGMMA_MAX_ROWS = 256
+_WGMMA_SMALL_ROWS = 64
+_WGMMA_BN = 128
+_WGMMA_BK = 64
+_WGMMA_MIN_SPLIT_K = 256
+_HBM_BYTES_PER_S = 3.35e12
+_BF16_OPS_PER_S = 989e12
+_WAVE_FILL_S = 1e-6
+_SUM_LAUNCH_S = 2e-6
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 _sm_count: dict = {}
@@ -122,6 +144,9 @@ _GEMV_ARGS = [_c_void_p, _c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
 _GEMM_ARGS = [_c_void_p, _c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
               _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
               _c_int, _c_void_p]
+_WGMMA_ARGS = [_c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_int,
+               _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p]
+_INT_P = ctypes.POINTER(ctypes.c_int)
 
 
 def gemv_col_threads(K: int, N: int, g: int, sm_count: int, vec: bool = True) -> int:
@@ -165,6 +190,86 @@ def gemm_k_per_split(M: int, K: int, N: int, sm_count: int) -> int:
     splits = max(1, min(-(-_GEMM_BLOCKS_PER_SM * sm_count // tiles),
                         K // _GEMM_MIN_SPLIT_K))
     return -(-K // (splits * _GEMM_BK)) * _GEMM_BK
+
+
+def takes_wgmma(M: int, K: int, N: int, g: int, mode: str = "fast",
+                aligned: bool = True) -> bool:
+    """Whether a GEMM call takes the wgmma route: fast mode, at most 256
+    rows, x, q and s 16-byte aligned (`aligned`), rows of 16-byte multiples
+    for TMA (N % 16 == 0, K % 8 == 0) and a group size that is a multiple of
+    16 and divides 64 or is divided by it (a ring stage of 64 K rows then
+    holds whole groups or lies in one)."""
+    g_ok = g % 16 == 0 and (_WGMMA_BK % g == 0 or g % _WGMMA_BK == 0)
+    return (mode == "fast" and 1 <= M <= _WGMMA_MAX_ROWS and aligned
+            and N % 16 == 0 and K % 8 == 0 and K % g == 0 and g_ok)
+
+
+def gemm_route(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, g: int,
+               mode: str = "fast") -> str:
+    """The GEMM kernel a call takes, from its shapes and pointers alone."""
+    K, N = q.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, q, s))
+    return "wgmma" if takes_wgmma(x.shape[0], K, N, g, mode, aligned) else "mma_sync"
+
+
+def wgmma_plan_cost(M: int, K: int, N: int, sm_count: int, k_per_split: int) -> float:
+    """The plan's model of a call's seconds at a split of k_per_split rows:
+    whole waves of blocks, each block's time the larger of its weight bytes
+    and its operations at its share of the card, plus a ring fill a wave;
+    then, with more than one split, the fp32 partials written and read
+    again and the split sum's launch."""
+    nw = -(-M // 8) * 8
+    # blocks an SM holds: two up to 64 rows, else one (csrc/quant_gemm.cu
+    # kTmaMinBlocks)
+    slots = sm_count * (2 if M <= _WGMMA_SMALL_ROWS else 1)
+    splits = -(-K // k_per_split)
+    waves = -(-(-(-N // _WGMMA_BN) * splits) // slots)
+    block = max(k_per_split * _WGMMA_BN / (_HBM_BYTES_PER_S / slots),
+                2.0 * nw * k_per_split * _WGMMA_BN / (_BF16_OPS_PER_S / slots))
+    cost = waves * (block + _WAVE_FILL_S)
+    if splits > 1:
+        cost += 2 * 4 * splits * M * N / _HBM_BYTES_PER_S + _SUM_LAUNCH_S
+    return cost
+
+
+def gemm_wgmma_plan(M: int, K: int, N: int, sm_count: int) -> int:
+    """K rows per split of the wgmma route: whole ring stages, at least
+    _WGMMA_MIN_SPLIT_K rows a split (unless K is shorter), fp32 partials
+    (4 * splits * M * N bytes) no more than the weight's K * N bytes, and of
+    those the split with the least `wgmma_plan_cost` (the fewest splits on
+    a tie)."""
+    most = max(1, min(K // _WGMMA_MIN_SPLIT_K, K // (4 * M)))
+    best = None
+    for splits in range(1, most + 1):
+        kps = -(-K // (splits * _WGMMA_BK)) * _WGMMA_BK
+        cost = wgmma_plan_cost(M, K, N, sm_count, kps)
+        if best is None or cost < best[0]:
+            best = (cost, kps)
+    return best[1]
+
+
+def wgmma_geometry(M: int, K: int, g: int, s_bf16: bool, k_per_split: int) -> dict:
+    """The wgmma kernel's geometry for a call, from its C entry: rows
+    (wgmma's N), ring stages, bytes a stage, blocks an SM and dynamic shared
+    bytes."""
+    out = (ctypes.c_int * 5)()
+    build.entry(GEMM_SOURCE, "quant_gemm_tma_plan",
+                [_c_int, _c_int, _c_int, _c_int, _c_int, _INT_P])(
+        M, K, g, int(s_bf16), k_per_split, out)
+    return dict(zip(("rows", "stages", "stage_bytes", "blocks_per_sm", "smem_bytes"),
+                    list(out)))
+
+
+def wgmma_attributes(rows: int) -> dict:
+    """Registers a thread and local (spilled) bytes of the wgmma kernel for
+    `rows` x rows (wgmma's N: a multiple of 8 up to 256; one kernel each),
+    from cudaFuncGetAttributes."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    rc = build.entry(GEMM_SOURCE, "quant_gemm_tma_attributes", [_c_int, _INT_P, _INT_P])(
+        rows, ctypes.byref(regs), ctypes.byref(local))
+    if rc != 0:
+        raise RuntimeError(f"quant_gemm_tma_attributes: CUDA error {rc}")
+    return dict(registers=regs.value, local_bytes=local.value)
 
 
 def _sms(device) -> int:
@@ -219,6 +324,48 @@ def quant_gemv(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return y
 
 
+def gemm_launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, g: int,
+                route: str | None = None, mode: str = "fast",
+                k_per_split: int | None = None) -> torch.Tensor:
+    """One call of csrc/quant_gemm.cu on checked CUDA operands, uncounted:
+    `quant_gemm` calls it with the route and plan that the shapes pick, and
+    chip_smoke.py and the tools time either route or another split
+    (`k_per_split`) through it. A route the shapes do not allow raises."""
+    M = x.shape[0]
+    K, N = q.shape
+    route = route or gemm_route(x, q, s, g, mode)
+    if route not in GEMM_ROUTES:
+        raise ValueError(f"quant_gemm: route must be one of {GEMM_ROUTES}, got {route!r}")
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, q, s))
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "wgmma":
+        if not takes_wgmma(M, K, N, g, mode, aligned):
+            raise ValueError(f"quant_gemm: the wgmma route does not take M {M}, K {K}, "
+                             f"N {N}, g {g}, mode {mode}, aligned {aligned}")
+        kps = k_per_split or gemm_wgmma_plan(M, K, N, _sms(x.device))
+    else:
+        kps = k_per_split or gemm_k_per_split(M, K, N, _sms(x.device))
+    splits = -(-K // kps)
+    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+               if splits > 1 else y)
+    if route == "wgmma":
+        xb = x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
+        rc = build.entry(GEMM_SOURCE, "quant_gemm_tma", _WGMMA_ARGS)(
+            xb.data_ptr(), q.data_ptr(), s.data_ptr(), int(s.dtype == torch.bfloat16),
+            y.data_ptr(), int(y.dtype == torch.bfloat16), partial.data_ptr(), M, K, N,
+            g, kps, stream)
+    else:
+        rc = build.entry(GEMM_SOURCE, GEMM_SOURCE, _GEMM_ARGS)(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(),
+            s.data_ptr(), int(s.dtype == torch.bfloat16), y.data_ptr(),
+            partial.data_ptr(), M, K, N, g, int(mode == "exact"), kps,
+            int(aligned), stream)
+    if rc != 0:
+        raise RuntimeError(f"quant_gemm: {route} kernel launch failed, CUDA error {rc}")
+    return y
+
+
 def quant_gemm(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, g: int,
                mode: str = "fast") -> torch.Tensor:
     """x [M, K] @ dequant(q [K, N], s [K/g, N]) -> [M, N] in x's dtype."""
@@ -227,24 +374,14 @@ def quant_gemm(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, g: int,
     if x.device.type == "cpu":
         return quant_gemm_ref(x, q, s, g, mode)
     _check(x, q, s, g, "quant_gemm")
-    M = x.shape[0]
-    K, N = q.shape
-    kps = gemm_k_per_split(M, K, N, _sms(x.device))
-    splits = -(-K // kps)
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-               if splits > 1 else y)
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, q, s))
-    rc = build.entry(GEMM_SOURCE, GEMM_SOURCE, _GEMM_ARGS)(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(),
-        s.data_ptr(), int(s.dtype == torch.bfloat16), y.data_ptr(),
-        partial.data_ptr(), M, K, N, g, int(mode == "exact"), kps,
-        int(aligned), torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"quant_gemm: kernel launch failed, CUDA error {rc}")
+    route = gemm_route(x, q, s, g, mode)
+    y = gemm_launch(x, q, s, g, route, mode)
     quant_gemm.launches += 1
+    if route == "wgmma":
+        quant_gemm.wgmma_launches += 1
+        quant_gemm.x_roundings += int(x.dtype != torch.bfloat16)
     return y
 
 
 quant_gemv.launches = 0
-quant_gemm.launches = 0
+quant_gemm.launches = quant_gemm.wgmma_launches = quant_gemm.x_roundings = 0

@@ -70,8 +70,10 @@ def counted_kernels():
 
 def _counters():
     """(object, attribute) of every count a replay adds to: the kernels'
-    launches, the collectives' calls and bytes."""
+    launches, the GEMM's wgmma-route launches and x roundings, the
+    collectives' calls and bytes."""
     return ([(w, "launches") for w in counted_kernels()]
+            + [(qm.quant_gemm, "wgmma_launches"), (qm.quant_gemm, "x_roundings")]
             + [(c, a) for c in collectives.counted() for a in ("launches", "bytes")])
 
 
@@ -236,8 +238,8 @@ class GraphCache:
         """Per decode (or prefill) graph: what one replay adds to each
         count, by name (a kernel's launches; a collective's `.launches` and
         `.bytes`)."""
-        names = [f"{o.__name__}.{a}" if o in collectives.counted() else o.__name__
-                 for o, a in _counters()]
+        names = [o.__name__ if a == "launches" and o not in collectives.counted()
+                 else f"{o.__name__}.{a}" for o, a in _counters()]
         return [dict(zip(names, e.launches)) for e in self._graphs.values()
                 if e.prefill == prefill]
 

@@ -168,6 +168,80 @@ def test_gemm_fast_ignores_scale_rows_past_k_over_g(dev):
     assert torch.equal(qm.quant_gemm(x, q, padded, 64), qm.quant_gemm(x, q, s, 64))
 
 
+@pytest.mark.parametrize("M,K,g", [(1, 11008, 64)] + [
+    (M, 4096, g) for M in (8, 16, 32, 64, 96, 128, 192, 255, 256) for g in (32, 64, 128, 256)])
+@pytest.mark.parametrize("x_dtype,s_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16),
+])
+def test_gemm_wgmma_route(dev, M, K, g, x_dtype, s_dtype):
+    """The wgmma route (TMA, mbarrier ring, wgmma) at every M it takes and
+    the group sizes of the main paths: within the plain version's fast
+    tolerance, bit-repeatable, counted on its route."""
+    N = 4096
+    x, q, s = _operands(dev, M, K, N, g, x_dtype, s_dtype, seed=M + g)
+    assert qm.gemm_route(x, q, s, g) == "wgmma"
+    launches, wgmma, rounded = (qm.quant_gemm.launches, qm.quant_gemm.wgmma_launches,
+                                qm.quant_gemm.x_roundings)
+    got = qm.quant_gemm(x, q, s, g)
+    torch.cuda.synchronize()
+    assert qm.quant_gemm.launches == launches + 1
+    assert qm.quant_gemm.wgmma_launches == wgmma + 1
+    assert qm.quant_gemm.x_roundings == rounded + int(x_dtype == torch.float32)
+    want = qm.quant_gemm_ref(x, q, s, g)
+    assert got.dtype == x_dtype and got.shape == (M, N)
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= (BF16_ULP if x_dtype == torch.bfloat16 else TOL["fast"])
+    assert torch.equal(qm.quant_gemm(x, q, s, g), got)
+
+
+@pytest.mark.parametrize("M", list(range(1, 257, 11)) + [256])
+def test_gemm_wgmma_every_kernel(dev, M):
+    """One kernel for each wgmma N (M rounded up to 8): each within one bf16
+    ulp at a small shape, rows past M never written."""
+    x, q, s = _operands(dev, M, 512, 256, 64, torch.bfloat16, torch.bfloat16, seed=M)
+    got = qm.gemm_launch(x, q, s, 64, "wgmma")
+    assert got.shape == (M, 256)
+    assert _rel(got, qm.quant_gemm_ref(x, q, s, 64)) <= BF16_ULP
+
+
+@pytest.mark.parametrize("kps", [64, 256, 1024, 4096])
+def test_gemm_wgmma_any_split(dev, kps):
+    """Any split of whole ring stages, the last one short: within one bf16
+    ulp, the same split twice bit-equal."""
+    x, q, s = _operands(dev, 33, 4160, 1024, 64, torch.bfloat16, torch.bfloat16, seed=kps)
+    got = qm.gemm_launch(x, q, s, 64, "wgmma", k_per_split=kps)
+    assert _rel(got, qm.quant_gemm_ref(x, q, s, 64)) <= BF16_ULP
+    assert torch.equal(qm.gemm_launch(x, q, s, 64, "wgmma", k_per_split=kps), got)
+
+
+def test_gemm_wgmma_ignores_scale_rows_past_k_over_g(dev):
+    x, q, s = _operands(dev, 8, 1024, 512, 64, torch.bfloat16, torch.bfloat16)
+    padded = torch.cat([s, torch.full((5, 512), float("nan"), device=dev, dtype=s.dtype)])
+    assert qm.gemm_route(x, q, padded, 64) == "wgmma"
+    assert torch.equal(qm.quant_gemm(x, q, padded, 64), qm.quant_gemm(x, q, s, 64))
+
+
+def test_gemm_wgmma_kernels_do_not_spill(dev):
+    for rows in range(8, 257, 8):
+        attrs = qm.wgmma_attributes(rows)
+        assert attrs["local_bytes"] == 0, (rows, attrs)
+
+
+def test_gemm_ragged_shapes_keep_the_mma_sync_route(dev):
+    for M, K, N, g in [(7, 192, 200, 64), (3, 1088, 100, 64), (8, 640, 256, 8),
+                       (8, 648, 264, 24)]:
+        x, q, s = _operands(dev, M, K, N, g, torch.float32, torch.float32)
+        assert qm.gemm_route(x, q, s, g) == "mma_sync"
+    x, q, s = _operands(dev, 5, 512, 256, 64, torch.float32, torch.float32)
+    assert qm.gemm_route(x, q, s, 64) == "wgmma"
+    assert qm.gemm_route(x, q, s, 64, "exact") == "mma_sync"
+    buf = torch.empty(5 * 512 + 1, device=dev)
+    assert qm.gemm_route(buf[1:].view(5, 512), q, s, 64) == "mma_sync"  # x unaligned
+    with pytest.raises(ValueError):
+        qm.gemm_launch(buf[1:].view(5, 512), q, s, 64, "wgmma")
+
+
 def test_wrappers_reject_bad_input(dev):
     x, q, s = _operands(dev, 1, 512, 256, 64, torch.float32, torch.float32)
     with pytest.raises(ValueError):
