@@ -44,7 +44,14 @@ last line:
      (x @ w_bf16 with the weight dequantized ahead of time: a yardstick the
      port never calls), beside the least time the card could take; the GEMV
      also at a ragged N, and at the five Llama-2-7B shapes with 4 and 8
-     column threads a warp at the plans for 2, 4 and 8 blocks per SM.
+     column threads a warp at the plans for 2, 4 and 8 blocks per SM; the
+     wgmma kernels' registers and local bytes (none); a `kernel_bits` row
+     (two calls of the GEMV at the five shapes and of the GEMM at
+     BITS_GEMM_M rows of the four projections give the same bits, with
+     the GEMM's reduce_splits launches as data); one `stream_fit` row per
+     kernel and M
+     (the line t = a + weight bytes / BW through the rows' times at the 7B
+     shapes, beside the library's).
   4. fused kernel: the decode megakernel against its plain version on the
      card at TinyLlama-1.1B INT8 g 256, Llama-3.2-1B INT8 g 256,
      Qwen2.5-0.5B bf16 and TinyLlama-1.1B INT8 g 64 (int8 activations), full
@@ -85,7 +92,8 @@ last line:
      the graph cache's `graphs` counters (decode and prefill) with its
      pool's bytes. The prefill replays a CUDA graph of itself too: each
      Generator path (6, 6b, 7) emits a `prefill` row per PREFILL_LENS prompt
-     (32 tokens, the GEMM's bucket; 256, the dequantized matmul's), graph
+     (32 tokens, the GEMM's bucket; 100, bucket 128, the GEMM at M = 128;
+     256, the dequantized matmul's), graph
      route beside eager on the same weights, each on a new Generator: the
      key's first call (eager run and capture) apart from the median of
      PREFILL_WARM warm calls, device busy per prefill and the idle share
@@ -420,10 +428,14 @@ GEMV_SHAPES = [("wqkv", 4096, 12288, 32), ("wo", 4096, 4096, 32),
 PREFILL_M = 32
 # the GEMM's rows past the prefill and engine ones, at the four 7B shapes
 GEMM_LARGE_M = (64, 128, 192, 256)
-# the prefill rows: a 32-token prompt (the GEMM's bucket) and a 256-token one
-# (ops/linear.py PREFILL_DEQUANT_ROWS: the dequantized matmul), each key's
-# first call apart from the median of PREFILL_WARM warm calls
-PREFILL_LENS = (32, 256)
+# the GEMM's rows of the bit-equality row (two calls, the same bits), at
+# the four 7B shapes
+BITS_GEMM_M = (8, 128, 255)
+# the prefill rows: a 32-token prompt (the GEMM's bucket), a 100-token one
+# (bucket 128: the GEMM at M = 128) and a 256-token one (ops/linear.py
+# PREFILL_DEQUANT_ROWS: the dequantized matmul), each key's first call
+# apart from the median of PREFILL_WARM warm calls
+PREFILL_LENS = (32, 100, 256)
 PREFILL_WARM = 5
 
 CARD = ""
@@ -609,10 +621,12 @@ def gemv_variants(dev, g=256):
 
 def phase_kernels(dev):
     gemv, gemm = [], []
+    fit_rows = {}
     for i, (name, K, N, per_token) in enumerate(GEMV_SHAPES):
         row = check_kernel("quant_gemv", dev, 1, K, N, 256, "fast", SEED + i,
                            name)
         gemv.append((row, per_token))
+    fit_rows["quant_gemv", 1] = [r for r, _ in gemv]
     check_kernel("quant_gemv", dev, 1, 4096, 4096, 64, "fast", SEED + 10)
     check_kernel("quant_gemv", dev, 1, 1024, 1000, 64, "fast", SEED + 11, "ragged N")
     gemv_variants(dev)
@@ -620,21 +634,78 @@ def phase_kernels(dev):
         row = check_kernel("quant_gemm", dev, PREFILL_M, K, N, 256, "fast",
                            SEED + 20 + i, name)
         gemm.append((row, 32))
+    fit_rows["quant_gemm", PREFILL_M] = [r for r, _ in gemm]
     # the engine's decode route: M = max_batch = 8 rows
-    for i, (name, K, N, _) in enumerate(GEMV_SHAPES[:4]):
-        check_kernel("quant_gemm", dev, ENGINE_SLOTS, K, N, 256, "fast",
-                     SEED + 60 + i, name)
+    fit_rows["quant_gemm", ENGINE_SLOTS] = [
+        check_kernel("quant_gemm", dev, ENGINE_SLOTS, K, N, 256, "fast", SEED + 60 + i, name)
+        for i, (name, K, N, _) in enumerate(GEMV_SHAPES[:4])]
     for M in (2, 255):
         check_kernel("quant_gemm", dev, M, 4096, 12288, 256, "fast", SEED + 30 + M)
     # the wgmma route's larger M: one block covers every row of its columns
     for M in GEMM_LARGE_M:
-        for i, (name, K, N, _) in enumerate(GEMV_SHAPES[:4]):
+        fit_rows["quant_gemm", M] = [
             check_kernel("quant_gemm", dev, M, K, N, 256, "fast", SEED + 70 + M + i, name)
+            for i, (name, K, N, _) in enumerate(GEMV_SHAPES[:4])]
     for M in (2, 32, 255):
         check_kernel("quant_gemm", dev, M, 4096, 4096, 256, "exact", SEED + 40 + M)
     check_kernel("quant_gemm", dev, 1, 11008, 4096, 64, "fast", SEED + 50)
     wgmma_attributes_row()
+    bits_row(dev)
+    stream_fit_rows(fit_rows)
     return gemv, gemm
+
+
+def bits_row(dev):
+    """Two calls of each weight-stream kernel on the same inputs give the
+    same bits: the GEMV at the five GEMV_SHAPES, the GEMM at BITS_GEMM_M
+    rows of the four 7B projections (bf16 x and scales, g 256). The
+    reduce_splits launches of the second calls, under torch.profiler, are
+    data: the wgmma route sums a split tile in that second launch. Fails
+    if any bits differ."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kuiperllama_tpu_torch.ops.kernels import quant_matmul as qm
+
+    cases = [("quant_gemv", name, 1, K, N) for name, K, N, _ in GEMV_SHAPES]
+    cases += [("quant_gemm", name, M, K, N) for M in BITS_GEMM_M
+              for name, K, N, _ in GEMV_SHAPES[:4]]
+    equal, sums = {}, []
+    for i, (kind, name, M, K, N) in enumerate(cases):
+        x, q, s = operands(dev, M, K, N, 256, SEED + 200 + i)
+        xb, sb = x.to(torch.bfloat16), s.to(torch.bfloat16)
+        fn = getattr(qm, kind)
+        first = fn(xb, q, sb, 256)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = fn(xb, q, sb, 256)
+            torch.cuda.synchronize()
+        equal[f"{kind} {name} M {M}"] = bool(torch.equal(first, again))
+        sums += [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "reduce_splits" in e.name]
+    ok = all(equal.values())
+    emit(dict(phase="kernel_bits", equal=equal, reduce_splits_launches=len(sums), ok=ok,
+              card=CARD))
+    if not ok:
+        raise AssertionError(f"a weight-stream kernel's bits differ between two calls: "
+                             f"{equal}")
+
+
+def stream_fit_rows(fit_rows):
+    """Per kernel and M, the least-squares line ms = a + weight bytes / BW
+    over the kernel rows at the 7B shapes (tools/gemm_costs.py `fit_line`):
+    the fixed cost a call pays apart from its stream, beside the library's
+    line on its bf16 bytes."""
+    from kuiperllama_tpu_torch.tools.gemm_costs import fit_line
+
+    for (kind, M), rows in fit_rows.items():
+        nbytes = [r["K"] * r["N"] for r in rows]
+        a, bw, res = fit_line(nbytes, [r["ms"] * 1e3 for r in rows])
+        la, lbw, lres = fit_line([2 * b for b in nbytes], [r["library_ms"] * 1e3 for r in rows])
+        emit(dict(phase="stream_fit", kernel=kind, M=M, weights=[r["weight"] for r in rows],
+                  intercept_us=a, slope_TBps=bw, residuals_us=res,
+                  library_intercept_us=la, library_slope_TBps=lbw, library_residuals_us=lres,
+                  card=CARD))
 
 
 def wgmma_attributes_row():

@@ -20,6 +20,12 @@ card.
 - The whole block with its K splits summed in split order, at M of 1, 8, 33
   and 255: against the JAX package's fast-mode Pallas matmul (interpret
   mode) to the fast mode's 2e-3 and the port's plain version to 1e-5.
+- The split grid at the plan's own splits (`gemm_wgmma_plan`): every
+  (column tile, 64-row K stage) unit once on every preset's INT8 shapes;
+  the grid emulated block by block, each block's fp32 partial in its split's
+  slot and `reduce_splits` adding them in split order, at M of 1, 8, 33, 72
+  and 128 against the same two references, and bit for bit the same
+  whatever order the blocks finish in.
 - The split plan (fp32 partials at most the weight's bytes) and the route
   on every preset's INT8 shapes.
 """
@@ -301,6 +307,97 @@ def test_ragged_shapes_keep_the_mma_sync_route(M, K, N, g):
     assert not tqm.takes_wgmma(M, K, N, g)
 
 
+def _split_units(M, K, N, sms):
+    """The split grid of the plan: [block] -> (tile, first stage, end
+    stage, split), block b = split * tiles + tile (csrc/quant_gemm.cu
+    `gemm_tma_kernel`: blockIdx.x the tile, blockIdx.y the split)."""
+    kps = tqm.gemm_wgmma_plan(M, K, N, sms)
+    tiles, stages, ss = -(-N // BN), -(-K // BK), kps // BK
+    splits = -(-K // kps)
+    return [(b % tiles, b // tiles * ss, min(stages, (b // tiles + 1) * ss), b // tiles)
+            for b in range(tiles * splits)]
+
+
+def _split_emulate(x, q, s, g, sms, order):
+    """y [M, N] fp32 as the split grid computes it: each block by
+    `_emulate_block` into its split's fp32 partial, the blocks finishing in
+    `order` (a permutation of the grid); then `reduce_splits` adds every
+    element's partials in split order from fp32 zero."""
+    M, K = x.shape
+    N = q.shape[1]
+    units = _split_units(M, K, N, sms)
+    splits = units[-1][3] + 1
+    partial = np.full((splits, M, -(-N // BN) * BN), np.nan, np.float32)
+    for b in order:
+        tile, lo, hi, sp = units[b]
+        partial[sp, :, tile * BN:(tile + 1) * BN] = _emulate_block(
+            x, q, s, g, tile * BN, lo * BK, min(K, hi * BK))
+    y = np.zeros((M, partial.shape[2]), np.float32)
+    for sp in range(splits):
+        y += partial[sp]
+    assert not np.isnan(y).any()
+    return y[:, :N]
+
+
+# these sizes cut tiles into K splits (4 on 66 SMs past at most 64 rows; 2
+# and 3 past 64 rows on 132 SMs). M = 1 past 64 groups, as the port routes
+# it (at 64 groups or fewer it takes the GEMV)
+@pytest.mark.parametrize("M,K,N,g,sms", [
+    (1, 1040, 256, 16, 66), (8, 1024, 256, 256, 66), (33, 1024, 256, 64, 66),
+    (128, 1024, 384, 64, 132), (72, 1024, 256, 256, 132)])
+def test_split_grid_emulation_matches_jax(M, K, N, g, sms):
+    rng = np.random.default_rng(M + K + N + sms)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    q = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    s = rng.uniform(0.005, 0.02, (K // g, N)).astype(np.float32)
+    units = _split_units(M, K, N, sms)
+    assert units[-1][3] > 0
+    y = _split_emulate(x, q, s, g, sms, range(len(units)))
+    want = np.asarray(jqm._quant_matmul_2d(jnp.asarray(x), jnp.asarray(q), jnp.asarray(s),
+                                           g, mode="fast"), np.float32)
+    assert np.abs(y - want).max() / np.abs(want).max() <= 2e-3
+    plain = tqm.quant_gemm_ref(torch.from_numpy(x), torch.from_numpy(q),
+                               torch.from_numpy(s), g).numpy()
+    assert np.abs(y - plain).max() / np.abs(plain).max() <= 1e-5
+
+
+# (M, N, SMs): 4 splits of 2 tiles, 2 splits of 3 tiles past 64 rows
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("M,N,sms", [(8, 256, 66), (128, 384, 132)])
+def test_split_grid_blocks_in_any_order_give_the_same_bits(seed, M, N, sms):
+    K, g = 1024, 64
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    q = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    s = rng.uniform(0.005, 0.02, (K // g, N)).astype(np.float32)
+    units = _split_units(M, K, N, sms)
+    assert units[-1][3] >= 1
+    first = _split_emulate(x, q, s, g, sms, range(len(units)))
+    order = rng.permutation(len(units))
+    assert np.array_equal(_split_emulate(x, q, s, g, sms, order), first)
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_SHAPES))
+@pytest.mark.parametrize("M", [1, 8, 32, 64, 65, 128, 255, 256])
+def test_split_grid_covers_every_unit_once(name, M):
+    """Every (tile, stage) unit of every INT8 projection is taken by exactly
+    one block: a block per (tile, split), the tile fastest; every split but
+    the last is the plan's whole stages, the last no longer; one partial
+    slot a (tile, split)."""
+    for K, N in _int8_shapes(name):
+        for sms in (1, 3, 66, 132):
+            units = _split_units(M, K, N, sms)
+            tiles, stages = -(-N // BN), -(-K // BK)
+            ss = tqm.gemm_wgmma_plan(M, K, N, sms) // BK
+            assert [u[0] for u in units[:tiles]] == list(range(tiles))
+            seen = np.zeros((tiles, stages), int)
+            for tile, lo, hi, _ in units:
+                seen[tile, lo:hi] += 1
+                assert 0 < hi - lo <= ss and (hi - lo == ss or hi == stages)
+            assert (seen == 1).all()
+            assert len({(u[0], u[3]) for u in units}) == len(units)
+
+
 @pytest.mark.parametrize("name", sorted(MODEL_SHAPES))
 @pytest.mark.parametrize("M", [1, 8, 32, 64, 65, 128, 255, 256])
 def test_split_plan_keeps_partials_under_the_weight(name, M):
@@ -337,25 +434,75 @@ def test_gemm_costs_cells_and_bound():
     assert gc.SHAPES["w2"][0] // 64 == 172 and not tqm.takes_wgmma(1, 11008, 4096, 24)
 
 
-def test_gemm_costs_without_a_card_exits():
+@pytest.mark.parametrize("argv", [[], ["--fit"], ["--layer", "--graph"]])
+def test_gemm_costs_without_a_card_exits(argv):
     from kuiperllama_tpu_torch.tools import gemm_costs as gc
 
     if torch.cuda.is_available():
         pytest.skip("a card is present: the probe would measure")
     with pytest.raises(SystemExit) as e:
-        gc.main([])
+        gc.main(argv)
     assert e.value.code not in (0, None)
+    assert "needs a CUDA device" in str(e.value.code)
 
 
-@pytest.mark.parametrize("name", ["wgmma_ring_only", "wgmma_no_dequant", "wgmma_no_mma"])
+@pytest.mark.parametrize("name", ["wgmma_ring_only", "wgmma_no_dequant", "wgmma_no_mma",
+                                  "wgmma_no_sum", "wgmma_empty", "gemv_no_sum",
+                                  "gemv_empty"])
 def test_gemm_costs_variant_applies_once(name):
     from kuiperllama_tpu_torch.ops.kernels import build
     from kuiperllama_tpu_torch.tools import gemm_costs as gc
 
-    text = (build.CSRC / "quant_gemm.cu").read_text()
+    table = gc.GEMV_VARIANTS if name in gc.GEMV_VARIANTS else gc.WGMMA_VARIANTS
+    source = "quant_gemv" if name in gc.GEMV_VARIANTS else "quant_gemm"
+    text = (build.CSRC / f"{source}.cu").read_text()
     out = gc.variant_source(name, text)
     assert out != text
-    for old, _ in gc.WGMMA_VARIANTS[name]:
+    for old, _ in table[name]:
         assert text.count(old) == 1 and out.count(old) <= 1
     with pytest.raises(RuntimeError, match="occurs 0 times"):
-        gc.variant_source(name, text.replace(gc.WGMMA_VARIANTS[name][0][0], ""))
+        gc.variant_source(name, text.replace(table[name][0][0], ""))
+
+
+@pytest.mark.parametrize("a_us,tbps", [(10.37, 2.343), (9.55, 2.8), (0.0, 1.24)])
+def test_gemm_costs_fit_recovers_a_line(a_us, tbps):
+    """The --fit line through synthetic times t = a + bytes / BW over the
+    sweep's weight bytes: a and BW back, and the residuals are each
+    point's noise less the fit's share of it."""
+    from kuiperllama_tpu_torch.tools import gemm_costs as gc
+
+    nbytes = [K * N for K in gc.FIT_K for N in gc.FIT_N]
+    exact = [a_us + b / (tbps * 1e6) for b in nbytes]
+    a, bw, res = gc.fit_line(nbytes, exact)
+    assert a == pytest.approx(a_us, abs=1e-6) and bw == pytest.approx(tbps, rel=1e-9)
+    assert max(map(abs, res)) < 1e-6
+    noise = np.random.default_rng(0).normal(0, 0.3, len(nbytes))
+    a, bw, res = gc.fit_line(nbytes, [t + e for t, e in zip(exact, noise)])
+    assert a == pytest.approx(a_us, abs=0.5) and bw == pytest.approx(tbps, rel=0.02)
+    assert sum(res) == pytest.approx(0.0, abs=1e-9)
+    assert max(map(abs, res)) <= max(map(abs, noise)) + 0.3
+
+
+def test_gemm_costs_fit_grid_and_sweep():
+    """The sweep's shapes take the kernels it names: every point's GEMV
+    takes the GEMV's shapes (at most 64 groups), every GEMM point the wgmma
+    route, and each kernel's grid is its plan's."""
+    from kuiperllama_tpu_torch.tools import gemm_costs as gc
+
+    assert gc.FIT_N[0] == 1024 and gc.FIT_N[-1] == 22016 and gc.FIT_K == (4096, 11008)
+    for K in gc.FIT_K:
+        assert K // gc.FIT_GROUP <= 64
+        for N in gc.FIT_N:
+            for M in gc.FIT_ROWS[1:]:
+                assert tqm.takes_wgmma(M, K, N, gc.FIT_GROUP)
+                grid = gc.fit_grid("wgmma", M, K, N, gc.FIT_GROUP, 132)
+                kps = tqm.gemm_wgmma_plan(M, K, N, 132)
+                assert grid["blocks"] == -(-N // BN) * -(-K // kps)
+                assert grid["slots"] == 132 * (2 if M <= 64 else 1)
+                one = gc.fit_grid("wgmma_one_wave", M, K, N, gc.FIT_GROUP, 132)
+                assert one["waves"] <= 1 or one["blocks"] == -(-N // BN)
+                assert gc.one_wave_kps(M, K, N, 132) % BK == 0
+            grid = gc.fit_grid("gemv", 1, K, N, gc.FIT_GROUP, 132)
+            ct = tqm.gemv_col_threads(K, N, gc.FIT_GROUP, 132)
+            gps = tqm.gemv_plan(K, N, gc.FIT_GROUP, 132, col_threads=ct)
+            assert grid["blocks"] == -(-N // (16 * ct)) * -(-(K // gc.FIT_GROUP) // gps)

@@ -85,6 +85,17 @@ def test_gemv_every_layout_and_plan(dev, K, N, g):
     assert int(qm._counters(dev, 1).abs().sum()) == 0
 
 
+@pytest.mark.parametrize("K,N", [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096),
+                                 (4096, 32000)])
+def test_gemv_bits_at_the_7b_shapes(dev, K, N):
+    """Llama-2-7B's five GEMV shapes at the plan: within one bf16 ulp, two
+    calls bit-equal."""
+    x, q, s = _operands(dev, 1, K, N, 256, torch.bfloat16, torch.bfloat16, seed=K + N)
+    got = qm.quant_gemv(x, q, s, 256)
+    assert _rel(got, qm.quant_gemv_ref(x, q, s, 256)) <= BF16_ULP
+    assert torch.equal(qm.quant_gemv(x, q, s, 256), got)
+
+
 def test_gemv_ignores_scale_rows_past_k_over_g(dev):
     K, N, g = 1024, 512, 64
     x, q, s = _operands(dev, 1, K, N, g, torch.float32, torch.float32)
@@ -213,6 +224,28 @@ def test_gemm_wgmma_any_split(dev, kps):
     got = qm.gemm_launch(x, q, s, 64, "wgmma", k_per_split=kps)
     assert _rel(got, qm.quant_gemm_ref(x, q, s, 64)) <= BF16_ULP
     assert torch.equal(qm.gemm_launch(x, q, s, 64, "wgmma", k_per_split=kps), got)
+
+
+@pytest.mark.parametrize("M", [8, 32, 128, 255])
+def test_gemm_bits_at_the_7b_shapes(dev, M):
+    """The plan's split grid at Llama-2-7B's four projections: within one
+    bf16 ulp, two calls bit-equal, and a reduce_splits launch (seen by
+    torch.profiler) exactly where the plan splits K."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for i, (K, N) in enumerate([(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096)]):
+        x, q, s = _operands(dev, M, K, N, 256, torch.bfloat16, torch.bfloat16, seed=M + i)
+        splits = -(-K // qm.gemm_wgmma_plan(M, K, N, sms))
+        got = qm.quant_gemm(x, q, s, 256)
+        assert _rel(got, qm.quant_gemm_ref(x, q, s, 256)) <= BF16_ULP
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = qm.quant_gemm(x, q, s, 256)
+            torch.cuda.synchronize()
+        assert torch.equal(again, got)
+        sums = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and "reduce_splits" in e.name]
+        assert len(sums) == (splits > 1), (M, K, N, splits, sums)
 
 
 def test_gemm_wgmma_ignores_scale_rows_past_k_over_g(dev):
