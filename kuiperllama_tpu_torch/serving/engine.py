@@ -34,6 +34,17 @@ flags into the engine's fixed `prefill_logits`, `prefill_first` and
 ("admit", max_batch, T, S, cache dtype) for the dense admit,
 ("prefill_paged", max_batch, T, mesh) and ("prefill_chunk", max_batch, C,
 n_hist, mesh) for the paged ones, where the chunk's start is an input.
+
+Spans (utils/profiling.py), recorded only while a torch profiler records:
+`kt.engine.step` around each step, and inside it, in order,
+`kt.engine.admit` (the requests admitted, each one's wait since
+`submit()`, the queued ones left and why: `no_slot` or `no_pages`),
+`kt.engine.prefill` (its graph key, rows real and padded, T, prompt tokens
+and computed ones, `replay`, `capture` or `eager`; a chunked wave gives one
+a chunk), `kt.engine.sync` (the host blocked in a fetch: after the
+prefill, after the chunk), `kt.engine.chunk` (steps, rows, and for the
+PagedEngine the pool's pages by use) and `kt.engine.collect` (the requests
+retired).
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from ..config import ModelConfig
 from ..models import decoder
 from ..ops.linear import kernels_on
 from ..ops.sampling import DecodeState, sample_greedy
+from ..utils.profiling import span, tracing
 from .generate import _bucket, _bucket_len, _stop_array, decode_chunk
 from .graphs import GraphCache, run_once
 
@@ -59,9 +71,11 @@ class Request:
     prompt_ids: List[int]
     max_new_tokens: int = 128
     request_id: int = field(default_factory=itertools.count().__next__)
-    # filled by the engine:
+    # filled by the engine (time.perf_counter()):
     out_ids: List[int] = field(default_factory=list)
-    submit_time: float = 0.0
+    submit_time: float = 0.0  # the first stamp: the server's, or submit()'s
+    queued_time: float = 0.0  # submit()'s own, at every submission
+    admit_time: float = 0.0   # the first admission into a slot
     first_token_time: float = 0.0
     finish_time: float = 0.0
     preempted: int = 0  # times evicted mid-decode under pool pressure
@@ -227,20 +241,22 @@ class Engine:
         self.prefill_first.copy_(first)
         self.prefill_done.copy_(done)
 
-    def _run_prefill(self, key, fn, buf):
+    def _run_prefill(self, key, fn, buf, sp):
         """`fn` (a prefill over `buf` into the fixed outputs) eagerly or as
-        a replay of its graph (serving/graphs.py). Returns (first tokens,
-        done flags): the fixed outputs, in admit order."""
+        a replay of its graph (serving/graphs.py), noted on the prefill's
+        span `sp`. Returns (first tokens, done flags): the fixed outputs, in
+        admit order."""
         static = (buf, self.prefill_first, self.prefill_done,
                   self.prefill_logits, self._stop_arr, *self._cache_tensors(),
                   *self.rope)
-        run_once(self.graph_cache, key, fn, static)
+        sp.set(key=key, graph=run_once(self.graph_cache, key, fn, static))
         return self.prefill_first, self.prefill_done
 
     def _prefill_batch(self, slots: np.ndarray, toks: np.ndarray,
-                       lens: np.ndarray):
-        """One forward for the whole admit batch. Returns (first tokens,
-        done flags) as device tensors in ADMIT order (callers index [:Ba])."""
+                       lens: np.ndarray, sp):
+        """One forward for the whole admit batch, under the prefill span
+        `sp`. Returns (first tokens, done flags) as device tensors in ADMIT
+        order (callers index [:Ba])."""
         # admit-ordered rows go to slot order for the in-place prefill (row s
         # of the forward writes cache slot s)
         Bm, T = self.max_batch, toks.shape[1]
@@ -264,11 +280,15 @@ class Engine:
             i = idx.long()
             self._emit_first(logits[i], first[i], done[i])
 
-        return self._run_prefill(key, fn, buf)
+        return self._run_prefill(key, fn, buf, sp)
 
-    def _run_chunk(self):
+    def _run_chunk(self, sp):
+        """Launch one decode chunk over the active slots, noted on the
+        chunk's span `sp`. Returns its [tokens | pos | done] on the
+        device."""
         live = max((int(self._pos_np[s]) for s in self.active), default=0)
         active = min(_bucket_len(live + self.chunk + 1), self.max_len)
+        sp.set(steps=self.chunk, rows=len(self.active), window=active)
         self.n_decode_steps += self.chunk
         toks = decode_chunk(
             self.cfg, self.params, self.state, self.cache, self.generator,
@@ -300,9 +320,11 @@ class Engine:
 
     def submit(self, req: Request):
         # keep an earlier stamp (the HTTP server stamps at enqueue, so TTFT
-        # includes its queue wait); a first submission stamps here
+        # includes its queue wait); a first submission stamps here.
+        # queued_time is always the engine's own
+        req.queued_time = time.perf_counter()
         if not req.submit_time:
-            req.submit_time = time.perf_counter()
+            req.submit_time = req.queued_time
         self.queue.append(req)
 
     def submit_prompt(self, text: str, **kw) -> Request:
@@ -353,10 +375,26 @@ class Engine:
     def step(self) -> List[Request]:
         """Admit as many queued requests as fit, run one decode chunk,
         retire finished rows. Returns newly finished requests."""
-        self._admit()
-        if not self.active:
-            return []
-        return self._collect(self._run_chunk().cpu().numpy())
+        with span("kt.engine.step"):
+            self._admit()
+            if not self.active:
+                return []
+            return self._decode()
+
+    def _decode(self) -> List[Request]:
+        """One decode chunk over the active slots, its one fetch, and the
+        rows it retires. Returns newly finished requests."""
+        with span("kt.engine.chunk") as sp:
+            meta = self._run_chunk(sp)
+            if tracing():
+                sp.ids = tuple(r.request_id for r in self.active.values())
+        with span("kt.engine.sync"):
+            meta = meta.cpu().numpy()
+        with span("kt.engine.collect") as sp:
+            finished = self._collect(meta)
+            if tracing():
+                sp.set(retired=[r.request_id for r in finished])
+        return finished
 
     def _free_slots(self) -> List[int]:
         return [s for s in range(self.max_batch) if s not in self.active]
@@ -369,18 +407,32 @@ class Engine:
         return req.prompt_ids + req.out_ids
 
     def _pop_admits(self):
-        """Move as many queued requests as fit into reserved slots."""
-        free = self._free_slots()
-        admits = []
-        while self.queue and free and self._can_admit(self.queue[0]):
-            req = self.queue.pop(0)
-            slot = free.pop(0)
-            n = len(self._effective_ids(req))
-            if not 1 <= n < self.max_len:
-                raise ValueError(f"request {req.request_id}: {n} prompt tokens, "
-                                 f"max_len {self.max_len}")
-            self._reserve(slot, req)
-            admits.append((slot, req))
+        """Move as many queued requests as fit into reserved slots; a
+        request's first admission stamps its admit_time."""
+        with span("kt.engine.admit") as sp:
+            free = self._free_slots()
+            admits, now = [], 0.0
+            while self.queue and free and self._can_admit(self.queue[0]):
+                req = self.queue.pop(0)
+                slot = free.pop(0)
+                n = len(self._effective_ids(req))
+                if not 1 <= n < self.max_len:
+                    raise ValueError(f"request {req.request_id}: {n} prompt "
+                                     f"tokens, max_len {self.max_len}")
+                self._reserve(slot, req)
+                if not req.admit_time:
+                    now = now or time.perf_counter()
+                    req.admit_time = now
+                admits.append((slot, req))
+            if tracing():
+                sp.ids = tuple(r.request_id for _, r in admits)
+                # each first admission's wait (a preempted request resumes
+                # under its first stamp)
+                sp.set(waits=[r.admit_time - r.queued_time for _, r in admits
+                              if r.admit_time == now],
+                       left=len(self.queue),
+                       why=(None if not self.queue else "no_slot" if not free
+                            else "no_pages"))
         return admits
 
     def _admit(self):
@@ -409,21 +461,24 @@ class Engine:
         T = min(_bucket(max(len(self._effective_ids(r)) for _, r in admits)),
                 self.max_len)
         toks, lens, slots = self._admit_rows(admits, T)
+        tokens, computed = int(lens[:len(admits)].sum()), self.max_batch * T
         t0 = time.perf_counter()
-        first, done = self._prefill_batch(slots, toks, lens)
-        self.n_prefill_calls += 1
+        with span("kt.engine.prefill", rows_real=len(admits), rows=self.max_batch,
+                  T=T, tokens=tokens, computed=computed) as sp:
+            first, done = self._prefill_batch(slots, toks, lens, sp)
+            self.n_prefill_calls += 1
         self._activate(admits, slots, lens, first, done)  # syncs
         self.prefill_wall_s += time.perf_counter() - t0
-        self.prefill_tokens += int(sum(len(self._effective_ids(r))
-                                       for _, r in admits))
-        self.prefill_padded_tokens += self.max_batch * T
+        self.prefill_tokens += tokens
+        self.prefill_padded_tokens += computed
 
     def _activate(self, admits, slots, lens, first, done):
         """Post-prefill bookkeeping: install first tokens and positions,
         record TTFT, hand the slots to the decode loop."""
         Ba = len(admits)
-        first_np = first.cpu().numpy()  # syncs the prefill
-        done_np = done.cpu().numpy()
+        with span("kt.engine.sync"):
+            first_np = first.cpu().numpy()  # syncs the prefill
+            done_np = done.cpu().numpy()
         now = time.perf_counter()
         real = self._to_dev(slots[:Ba].astype(np.int64))
         self.token[real] = first[:Ba].to(torch.int32)
@@ -590,27 +645,28 @@ class PagedEngine(Engine):
         return bool(self.queue or self.active or self._wave)
 
     def step(self) -> List[Request]:
-        if self.prefill_chunk:
-            if self._wave is None:
-                self._start_wave()
-            if self._wave is not None:
-                self._advance_wave()
-        else:
-            self._admit()
-        if not self.active:
-            if self._wave is None and self.queue and not self._can_admit(
-                    self.queue[0]):
-                # nothing running, nothing mid-prefill, the whole pool free:
-                # a head request that still does not fit never will
-                req = self.queue[0]
-                raise RuntimeError(
-                    f"request {req.request_id} needs more KV pages than the "
-                    f"pool has ({len(self._effective_ids(req))} prompt + "
-                    f"{req.max_new_tokens} new tokens vs "
-                    f"{self.allocator.n_free_pages} free pages of "
-                    f"{self.page_size} tokens)")
-            return []
-        return self._collect(self._run_chunk().cpu().numpy())
+        with span("kt.engine.step"):
+            if self.prefill_chunk:
+                if self._wave is None:
+                    self._start_wave()
+                if self._wave is not None:
+                    self._advance_wave()
+            else:
+                self._admit()
+            if not self.active:
+                if self._wave is None and self.queue and not self._can_admit(
+                        self.queue[0]):
+                    # nothing running, nothing mid-prefill, the whole pool
+                    # free: a head request that still does not fit never will
+                    req = self.queue[0]
+                    raise RuntimeError(
+                        f"request {req.request_id} needs more KV pages than "
+                        f"the pool has ({len(self._effective_ids(req))} prompt "
+                        f"+ {req.max_new_tokens} new tokens vs "
+                        f"{self.allocator.n_free_pages} free pages of "
+                        f"{self.page_size} tokens)")
+                return []
+            return self._decode()
 
     def _start_wave(self):
         admits = self._pop_admits()
@@ -663,6 +719,7 @@ class PagedEngine(Engine):
         buf, (tok, cs, n, cpd, hpd) = self._prefill_inputs(
             key, (w["toks"][:, start:start + C], start, w["lens"], cp, hp))
         chunk = prefill_chunk_paged if self._sharded is None else self._sharded.prefill_chunk
+        rows_real = len(w["admits"])
 
         def fn():
             logits, ends, _, _ = chunk(self.cfg, self.params, tok, cs, n,
@@ -674,7 +731,11 @@ class PagedEngine(Engine):
             self._emit_first(torch.where(ends[:, None], logits,
                                          self.prefill_logits))
 
-        first, done = self._run_prefill(key, fn, buf)
+        # a chunk's real tokens: each row's prompt tokens inside it
+        tokens = int(np.clip(w["lens"][:rows_real] - start, 0, C).sum())
+        with span("kt.engine.prefill", rows_real=rows_real, rows=Bpad, T=C,
+                  tokens=tokens, computed=Bpad * C, start=start) as sp:
+            first, done = self._run_prefill(key, fn, buf, sp)
         self.n_prefill_calls += 1
         w["progress"] = start + C
         if w["progress"] >= w["T"]:
@@ -751,7 +812,7 @@ class PagedEngine(Engine):
             self._reserved_caps[slot] = min(eff + remaining + 1, self.max_len)
 
     def _prefill_batch(self, slots: np.ndarray, toks: np.ndarray,
-                       lens: np.ndarray):
+                       lens: np.ndarray, sp):
         from ..models.paged import prefill_paged
 
         Ba, T = toks.shape
@@ -774,9 +835,25 @@ class PagedEngine(Engine):
                                  self.v_pages, tp, rope=self.rope)
             self._emit_first(last)
 
-        return self._run_prefill(key, fn, buf)
+        return self._run_prefill(key, fn, buf, sp)
 
-    def _run_chunk(self):
+    def _page_use(self) -> dict:
+        """The pool's pages by use, at a decode chunk's launch: holding the
+        tokens cached so far (active slots, and a wave's written part),
+        allocated (those, and pages extended for the chunk), still to be
+        claimed by the occupied slots' growth, and the pool."""
+        alloc, ps = self.allocator, self.page_size
+        held = sum(-(-int(self._pos_np[s]) // ps) for s in self.active)
+        if self._wave is not None:
+            w = self._wave
+            n = np.minimum(w["lens"][:len(w["admits"])], w["progress"])
+            held += int((-(-n // ps)).sum())
+        return dict(pages_held=held,
+                    pages_allocated=self._pool_pages - alloc.n_free_pages,
+                    pages_growth=self._future_growth_pages(),
+                    pool=self._pool_pages)
+
+    def _run_chunk(self, sp):
         from ..models.paged import pack_chunk_meta, run_chunk_paged, unpack_chunk_meta
         from ..ops.kernels.paged_attention import build_work_list
 
@@ -809,6 +886,9 @@ class PagedEngine(Engine):
                 self._preempt(victim)
                 if victim == slot:
                     break
+        sp.set(steps=steps if self.active else 0, rows=len(self.active))
+        if tracing():
+            sp.set(**self._page_use())
         if not self.active:
             return self._meta(torch.zeros((self.max_batch, 0), dtype=torch.int32,
                                           device=self.device))

@@ -24,10 +24,21 @@ kuiperllama_tpu/serving/generate.py.
         scales) takes ops/kernels/fused_decode_big.py per step, then the
         lm_head; without it, and at group 256 with bf16 scales, such a
         model decodes layered.
+
+Spans (utils/profiling.py), recorded only while a torch profiler records:
+`kt.gen.request` around each `generate_batch_ids` call, and inside it
+`kt.gen.prefill` (its graph key, prompt tokens and computed ones, `replay`,
+`capture` or `eager`) with the first-token fetch inside it as
+`kt.gen.sync`; then for each decode chunk `kt.gen.chunk` (steps, route:
+`small`, `big`, `layered` or `chunk`, attention window), `kt.gen.sync` (the
+fetch of its tokens) and `kt.gen.collect` (`on_chunk` and the kept lists;
+one follows the prefill too, for its token). No span is taken per decode
+step or per graph replay.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
@@ -44,6 +55,7 @@ from ..ops.kernels.fused_decode import (fits_vmem, fused_decode_chunk,
 from ..ops.kernels.fused_decode_big import fits_vmem_big, fused_decode_step_big
 from ..ops.linear import linear
 from ..ops.sampling import DecodeState, sample_token
+from ..utils.profiling import span, tracing
 from .graphs import GraphCache, run_once, run_steps
 
 MAX_STOP_IDS = 8
@@ -90,6 +102,23 @@ def _greedy(temperature: float, top_k: int, top_p: float) -> bool:
     return temperature <= 0.0 and top_k == 0 and top_p >= 1.0
 
 
+def chunk_route(params, cache_dtype, window: int, fused: bool,
+                greedy: bool) -> str:
+    """The route of a decode chunk over a `window`-slot attention window:
+    "layered" unless `fused`; else the small plan's per-step megakernel
+    ("small"), or its chunk kernel ("chunk", greedy under
+    KT_FUSED_CHUNK=1), then under KT_FUSED_BIG=1 the big plan's ("big"),
+    and "layered" where no plan fits."""
+    if not fused:
+        return "layered"
+    blocks = params["blocks"]
+    if fits_vmem(blocks, cache_dtype, window):
+        return "chunk" if greedy and tuning.fused_chunk_on() else "small"
+    if tuning.fused_big_on() and fits_vmem_big(blocks, cache_dtype, window):
+        return "big"
+    return "layered"
+
+
 def decode_chunk(cfg: ModelConfig, params, state: DecodeState, kv_cache,
                  generator, steps: int, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 1.0, active_len: int = 0,
@@ -129,18 +158,14 @@ def decode_chunk(cfg: ModelConfig, params, state: DecodeState, kv_cache,
     if active_len and active_len < S:
         cache = dict(k=kv_cache["k"][:, :, :active_len],
                      v=kv_cache["v"][:, :, :active_len])
-    small = big = False
     if fused and forward_fn is not None:
         raise ValueError("decode_chunk: the megakernels take no forward_fn")
-    if fused:
-        if rope is None:
-            rope = decoder.build_rope(cfg, state.token.device)
-        blocks, dt, alen = params["blocks"], kv_cache["k"].dtype, cache["k"].shape[2]
-        small = fits_vmem(blocks, dt, alen)
-        big = (not small and tuning.fused_big_on()
-               and fits_vmem_big(blocks, dt, alen))
-        fused = small or big
-    if small and _greedy(temperature, top_k, top_p) and tuning.fused_chunk_on():
+    route = chunk_route(params, kv_cache["k"].dtype, cache["k"].shape[2], fused,
+                        _greedy(temperature, top_k, top_p))
+    fused, big = route in ("small", "big", "chunk"), route == "big"
+    if fused and rope is None:
+        rope = decoder.build_rope(cfg, state.token.device)
+    if route == "chunk":
         x0 = params["tok_emb"][state.token.long()]  # [1, d]
         toks1, _, _ = fused_decode_chunk(cfg, params, x0, *_flat_cache(cache),
                                          state.pos, *rope, steps)
@@ -148,7 +173,6 @@ def decode_chunk(cfg: ModelConfig, params, state: DecodeState, kv_cache,
         state.token.copy_(toks1[-1:])
         state.pos.add_(steps)
         return toks1[None], state.token, state.pos, kv_cache, state.done
-    route = "big" if big else "small" if fused else "layered"
 
     def step():
         if fused:
@@ -249,6 +273,7 @@ class Generator:
         self._decode: dict = {}  # B -> (cache, DecodeState)
         self.prefill_logits: dict = {}  # B -> fp32 [B, vocab]
         self._prompts: dict = {}  # (B, T) -> int32 [B * T + B]: tokens, lengths
+        self._calls = itertools.count()  # a call's id on its spans
 
     def graphs_on(self) -> bool:
         """Whether decode steps replay CUDA graphs (see `graphs`)."""
@@ -364,54 +389,67 @@ class Generator:
         for i, p in enumerate(prompts):
             tokens[i, : lens[i]] = p
 
-        cache, state = self._batch(B, stop_ids)
-        gen = self.rng
-        gen.manual_seed(seed)
-        graphs = self.graph_cache if self.graphs_on() else None
+        with span("kt.gen.request", ids=(next(self._calls),), B=B, T=T):
+            cache, state = self._batch(B, stop_ids)
+            gen = self.rng
+            gen.manual_seed(seed)
+            graphs = self.graph_cache if self.graphs_on() else None
 
-        t0 = time.perf_counter()
-        fn, key, static = self._prefill_step(tokens, lens, temperature, top_k,
-                                             top_p)
-        run_once(graphs, key, fn, static, rng=temperature > 0)
-        first = state.token.cpu().numpy()  # host copy; also syncs prefill
-        t1 = time.perf_counter()
-        if on_chunk is not None:
-            on_chunk(first[:, None])
+            t0 = time.perf_counter()
+            with span("kt.gen.prefill", tokens=sum(lens), computed=B * T) as sp:
+                fn, key, static = self._prefill_step(tokens, lens, temperature,
+                                                     top_k, top_p)
+                sp.set(key=key, graph=run_once(graphs, key, fn, static,
+                                               rng=temperature > 0))
+                with span("kt.gen.sync"):
+                    first = state.token.cpu().numpy()  # host copy; syncs prefill
+            t1 = time.perf_counter()
+            with span("kt.gen.collect"):
+                if on_chunk is not None:
+                    on_chunk(first[:, None])
+                out = [[int(first[i])] for i in range(B)]
 
-        budget = min(max_new_tokens, limit - max(lens)) - 1
-        out = [[int(first[i])] for i in range(B)]
-        max_pos = max(lens)
-        fused = self._fused_ok(B)
-        done = state.done
-        while budget > 0 and not bool(done.all()):
-            steps = min(self.chunk, budget)
-            assert max_pos + steps <= limit, (max_pos, steps, limit)
-            active = min(_bucket_len(max_pos + steps + 1), self.cache_len)
-            toks, _, _, cache, done = decode_chunk(
-                cfg, self.params, state, cache, gen, steps=steps,
-                temperature=temperature, top_k=top_k, top_p=top_p,
-                active_len=active, rope=self.rope, fused=fused,
-                drop_past_end=False, graphs=graphs, forward_fn=self.forward_fn,
-            )
-            max_pos += steps
-            toks_np = toks.cpu().numpy()  # the chunk's one trip to the host
-            if on_chunk is not None:
-                on_chunk(toks_np)
-            for i in range(B):
-                out[i].extend(int(t) for t in toks_np[i])
-            budget -= steps
-        decode_s = time.perf_counter() - t1
+            budget = min(max_new_tokens, limit - max(lens)) - 1
+            max_pos = max(lens)
+            fused = self._fused_ok(B)
+            done = state.done
+            while budget > 0 and not bool(done.all()):
+                steps = min(self.chunk, budget)
+                assert max_pos + steps <= limit, (max_pos, steps, limit)
+                active = min(_bucket_len(max_pos + steps + 1), self.cache_len)
+                with span("kt.gen.chunk", steps=steps, window=active) as sp:
+                    if tracing():
+                        sp.set(route=chunk_route(
+                            self.params, cache["k"].dtype, active, fused,
+                            _greedy(temperature, top_k, top_p)))
+                    toks, _, _, cache, done = decode_chunk(
+                        cfg, self.params, state, cache, gen, steps=steps,
+                        temperature=temperature, top_k=top_k, top_p=top_p,
+                        active_len=active, rope=self.rope, fused=fused,
+                        drop_past_end=False, graphs=graphs,
+                        forward_fn=self.forward_fn,
+                    )
+                max_pos += steps
+                with span("kt.gen.sync"):
+                    toks_np = toks.cpu().numpy()  # the chunk's one trip to the host
+                with span("kt.gen.collect"):
+                    if on_chunk is not None:
+                        on_chunk(toks_np)
+                    for i in range(B):
+                        out[i].extend(int(t) for t in toks_np[i])
+                budget -= steps
+            decode_s = time.perf_counter() - t1
 
-        # truncate at (and drop) the first stop token per row
-        stops = set(int(i) for i in stop_ids)
-        cleaned = []
-        for row in out:
-            cut = len(row)
-            for j, t in enumerate(row):
-                if t in stops:
-                    cut = j
-                    break
-            cleaned.append(row[:cut])
+            # truncate at (and drop) the first stop token per row
+            stops = set(int(i) for i in stop_ids)
+            cleaned = []
+            for row in out:
+                cut = len(row)
+                for j, t in enumerate(row):
+                    if t in stops:
+                        cut = j
+                        break
+                cleaned.append(row[:cut])
         return cleaned, t1 - t0, decode_s
 
     def generate_ids(self, prompt_ids: Sequence[int], max_new_tokens: int = 128,

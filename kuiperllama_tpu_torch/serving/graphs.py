@@ -43,6 +43,10 @@ decode state, the caller's prefill outputs). Sampling draws come from the
 cache's torch.Generator, registered with each graph whose step samples, so
 a seeded run replays the eager route's draws. Decode and prefill graphs are
 counted apart (`Counts`).
+
+While a torch profiler records, each capture, its eager first call
+included, is a `kt.graph.capture` span (utils/profiling.py) with the key,
+whether it is a prefill's and whether the key was captured before.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from ..ops.kernels import paged_attention as pa
 from ..ops.kernels import quant_matmul as qm
 from ..ops.kernels import workspace
 from ..parallel import collectives
+from ..utils.profiling import span
 
 
 def counted_kernels():
@@ -179,16 +184,18 @@ class GraphCache:
     def pool_bytes(self) -> int:
         return 0 if self._pool is None else STEP_GRAPH.pool_bytes(self._pool)
 
-    def step(self, key, fn, static, rng: bool = False, prefill: bool = False):
+    def step(self, key, fn, static, rng: bool = False, prefill: bool = False) -> str:
         """One step under `key`: a replay of its graph, or, for a new key or
         one captured before the workspace epoch moved, `fn()` run eagerly
         and then captured. static: the tensors `fn` reads and writes in
         place; rng: whether `fn` draws from the cache's generator; prefill:
-        count it as a prefill."""
+        count it as a prefill. Returns "replay" or "capture"."""
         entry = self._graphs.get(key)
         if entry is None or entry.epoch != workspace.epoch:
-            self._capture(key, fn, static, rng, prefill)
-            return
+            with span("kt.graph.capture", key=key, prefill=prefill,
+                      recapture=key in self._seen):
+                self._capture(key, fn, static, rng, prefill)
+            return "capture"
         if tuple(t.data_ptr() for t in static) != entry.ptrs:
             raise RuntimeError(f"graph {key}: a static tensor moved since its "
                                "capture")
@@ -200,6 +207,7 @@ class GraphCache:
         for (obj, attr), n in zip(_counters(), entry.launches):
             setattr(obj, attr, getattr(obj, attr) + n)
         (self.prefill if prefill else self.decode).replays += 1
+        return "replay"
 
     def _capture(self, key, fn, static, rng, prefill):
         if self._stream is None:
@@ -258,14 +266,15 @@ class GraphCache:
                     n_prefill_replays=p.replays, prefill_graphs=held.count(True))
 
 
-def run_once(graphs, key, fn, static, rng: bool = False):
+def run_once(graphs, key, fn, static, rng: bool = False) -> str:
     """A prefill: `fn()`, which reads its inputs from fixed buffers and
     writes its outputs into tensors the caller owns, run eagerly (graphs
-    None) or through `graphs` under `key` with `static` held fixed."""
+    None) or through `graphs` under `key` with `static` held fixed.
+    Returns "eager", "replay" or "capture"."""
     if graphs is None:
         fn()
-    else:
-        graphs.step(key, fn, static, rng, prefill=True)
+        return "eager"
+    return graphs.step(key, fn, static, rng, prefill=True)
 
 
 def run_steps(state, step, steps: int, graphs=None, key=None, static=(),

@@ -1,6 +1,6 @@
-"""The port's profiling utilities (kuiperllama_tpu_torch/utils/profiling.py)
-against the JAX package's, and the roofline probe's CLI against the JAX
-tool's keys."""
+"""The port's timing utilities (kuiperllama_tpu_torch/utils/profiling.py;
+its spans are tests/test_torch_spans.py's), and the roofline probe's CLI
+against the JAX tool's keys."""
 
 import json
 import os
@@ -9,45 +9,10 @@ import sys
 import pytest
 import torch
 
-from kuiperllama_tpu.utils import profiling as jp
 from test_torch_exp_kernel import load_jax_tool
 from kuiperllama_tpu_torch.tools import roofline as tr
 from kuiperllama_tpu_torch.utils import profiling as tp
 from torch_threads import one_thread  # noqa: F401
-
-
-def _timer(mod, totals, counts):
-    t = mod.Timer()
-    t.totals.update(totals)
-    t.counts.update(counts)
-    return t
-
-
-@pytest.mark.parametrize("totals,counts", [
-    ({}, {}),
-    ({"prefill": 1.25, "decode": 12.5, "x": 0.001}, {"prefill": 1, "decode": 128, "x": 3}),
-    ({"a_very_long_phase_name": 100.0}, {"a_very_long_phase_name": 7}),
-])
-def test_timer_summary_layout_equals_jax(totals, counts):
-    assert (_timer(tp, totals, counts).summary()
-            == _timer(jp, totals, counts).summary())
-
-
-def test_timer_phase_counts_calls():
-    t = tp.Timer()
-    for _ in range(3):
-        with t.phase("step"):
-            pass
-    assert t.counts["step"] == 3 and t.totals["step"] >= 0
-
-
-def test_log_json_fields_equal_jax(capsys):
-    jp.log_json("decode", tokens=128, model="tinyllama")
-    want = json.loads(capsys.readouterr().err)
-    tp.log_json("decode", tokens=128, model="tinyllama")
-    got = json.loads(capsys.readouterr().err)
-    assert list(got) == list(want) == ["ts", "event", "tokens", "model"]
-    assert {k: got[k] for k in got if k != "ts"} == {k: want[k] for k in want if k != "ts"}
 
 
 def test_device_time_on_cpu_tensors_is_positive():
