@@ -621,7 +621,9 @@ def bench_engine(args, cfg, params, dev, probes) -> dict:
         # single-shot burst admissions only: under staggered arrivals the
         # admission waits behind the decode chunk in flight, and in chunked
         # mode prefill and decode interleave, so the wall is not the
-        # prefill's. Each admission is one forward over [slots, T] tokens.
+        # prefill's. Each admission is one forward over the tokens the
+        # engine counts as computed (the paged engine's packed stream, the
+        # dense one's [slots, T] grid), and its lm_head over `slots` rows.
         rows = (eng.n_prefill_calls - prefill_calls) * args.batch
         flops = prefill_flops(params, eng.prefill_padded_tokens, rows)
         rate = flops / eng.prefill_wall_s

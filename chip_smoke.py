@@ -135,8 +135,21 @@ last line:
      then on the eager one: tokens/s, TTFT, the single-shot prefill's
      wall, equal tokens, exact launch counts on both, peak memory, and a
      profile of one decode chunk (both routes for Llama-2-7B). The warm-up
-     opens every prefill key the timed run takes (a 32-token prompt, and a
-     long one for the chunked engine), so its prefills replay.
+     opens every prefill key the timed run takes (the packed stream of 8
+     32-token prompts, and a long prompt's wave for the chunked engine), so
+     its prefills replay.
+ 10b. packed prefill (after phase 10): the PagedEngine's single-device
+     admission prefill, models/paged.py `prefill_packed_paged`, at the 7B
+     serve cell's shapes (Qwen2.5-7B, INT8 g 256, bf16 scales, activations
+     and pools, random weights from a seed; 32 rows, 128-token pages, rope
+     to 3,072), held to the padded `prefill_paged` of the same prompts on
+     the [32, bucket] grid the mesh path still takes: for each PACKED_MIXES
+     mix (about 100 tokens, whose 128-token stream takes the GEMM; about
+     700, bucket 1,024; 2,048, a stream on its bucket) the admitted rows'
+     last logits and every slot a prompt token writes, each within
+     PACKED_TOL of max|padded|, and the greedy first tokens; then both
+     prefills' CUDA-event times (eager, median of PACKED_TIMES calls) and
+     peak memory.
  11. server: InferenceServer and its HTTP front end on 127.0.0.1 over a
      PagedEngine of the fixture: concurrent requests answer the CPU
      engine's tokens, an invalid one gets a 400 and serving continues; a
@@ -172,7 +185,8 @@ last line:
      full Qwen2.5-0.5B lanes over one rank's block of pages, with rows it
      does not cover, merged against the unsplit kernel). Then four rows,
      each beside the single-device run on the same weights (seed 0, bf16
-     activations and cache, cache length 1024) in this process:
+     activations and cache, cache length 1024) in this process, whose
+     engine admits through the padded prefill the mesh path takes:
      (a) the Generator through KuiperModel.init(mesh=) at tp = 2 on two gloo
      ranks (Llama-2-7B INT8 g 64, bf16 scales, full width and depth; a
      32-token prompt, 128 greedy tokens; then an exact run of 16 tokens at
@@ -332,6 +346,19 @@ PAGED_M_TOL = 1e-6
 ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_PS = 8, 64, 128
 ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW = 16, 32, 128
 PROFILE_STEPS = 16
+# the packed prefill at the 7B serve cell's shapes: Qwen2.5-7B's published
+# config, the serve cell's slots, pages and context; prompt-length mixes of
+# about 100, 700 and 2,048 tokens (PACKED_MIXES); the packed and the padded
+# prefill differ in bf16 summation order (other GEMM shapes, masked keys),
+# so they are held within the full-depth limit of the other bf16 holds
+QWEN7B = dict(family="qwen2", dim=3584, hidden_dim=18944, n_layers=28, n_heads=28,
+              n_kv_heads=4, vocab_size=152064, tied_embedding=False,
+              group_size=256, rope_theta=1e6, norm_eps=1e-6)
+SERVE_SLOTS, SERVE_PS, SERVE_MAX_LEN = 32, 128, 3072
+PACKED_MIXES = {"n100": [60, 30, 10], "n700": [412, 37, 251],
+                "n2048": [1100, 530, 260, 120, 38]}
+PACKED_TIMES = 5
+PACKED_TOL = FUSED_TOL[("full depth", False)]
 # the tinychar engines: (name, engine class, options)
 FIXTURE_ENGINES = [("dense", "Engine", {}),
                    ("paged", "PagedEngine", dict(page_size=8, n_pages=13,
@@ -1665,12 +1692,13 @@ def phase_engine_main_path(dev, label, preset, prefill_chunk=0, long_prompt=0,
                           cache_dtype=torch.bfloat16, prefill_chunk=prefill_chunk,
                           graphs=graphs)
         # the warm-up opens the decode key and every prefill key of the
-        # timed run: the single-shot T = 32 bucket, then the chunked wave's
-        # n_hist buckets with a long prompt
-        for n in (ENGINE_PROMPT, long_prompt):
+        # timed run: the packed stream of ENGINE_SLOTS short prompts (a
+        # whole admission's bucket), then the chunked wave's n_hist buckets
+        # with a long prompt
+        for n, k in ((ENGINE_PROMPT, ENGINE_SLOTS), (long_prompt, 2)):
             if n:
                 eng.run([Request(prompt_ids=prompt(i, n), max_new_tokens=4)
-                         for i in range(2)])
+                         for i in range(k)])
         torch.cuda.synchronize()
         warm = graph_stats(eng.graph_cache)
         reqs = [Request(prompt_ids=prompt(i, long_prompt if long_prompt and i % 4 == 3
@@ -1766,6 +1794,115 @@ def phase_engine_main_path(dev, label, preset, prefill_chunk=0, long_prompt=0,
         raise AssertionError(f"{label} engine main path failed its checks")
     del params
     return g["launches"], row, prof
+
+
+def phase_packed_prefill(dev):
+    """Phase 10b: the packed admission prefill against the padded one on
+    the same prompts and weights at the 7B serve shapes: last logits and
+    written slots within PACKED_TOL, the same greedy first tokens; then
+    each prefill's time (CUDA events, eager, median of PACKED_TIMES calls
+    after one) and peak memory. One row a mix."""
+    import numpy as np
+    import torch
+
+    from kuiperllama_tpu_torch.config import ModelConfig
+    from kuiperllama_tpu_torch.fuse import fuse_params
+    from kuiperllama_tpu_torch.models import decoder, paged
+    from kuiperllama_tpu_torch.params import random_params_device
+    from kuiperllama_tpu_torch.quant import cast_scales
+    from kuiperllama_tpu_torch.serving.generate import _bucket
+
+    cfg = ModelConfig.from_header(seq_len=SERVE_MAX_LEN, **QWEN7B)
+    params = fuse_params(cast_scales(random_params_device(
+        cfg, device=dev, seed=SEED, quantize=True, group_size=256), torch.bfloat16))
+    rope = decoder.build_rope(cfg, dev)
+    R, ps = SERVE_SLOTS, SERVE_PS
+    rows = []
+    for name, lens in PACKED_MIXES.items():
+        rng = np.random.default_rng(len(lens))
+        prompts = [rng.integers(1, cfg.vocab_size, m).astype(np.int32) for m in lens]
+        need = [-(-m // ps) for m in lens]
+        P = 1 + sum(need)
+        pt = np.zeros((len(lens), SERVE_MAX_LEN // ps), np.int32)
+        first_page = 1
+        for b, k in enumerate(need):
+            pt[b, :k] = np.arange(first_page, first_page + k)
+            first_page += k
+        N = sum(lens)
+        n, T = _bucket(N), _bucket(max(lens))
+        # the packed stream, and the padded grid as PagedEngine._prefill_batch
+        # builds it (rows past the prompts: length 1, every page the sentinel)
+        packed = [torch.from_numpy(a).to(dev)
+                  for a in paged.pack_prompts(prompts, pt, n, R, ps)]
+        grid = np.zeros((R, T), np.int32)
+        grid_lens = np.ones((R,), np.int32)
+        grid_pages = np.full((R, T), 2 ** 30, np.int32)
+        for b, (p, m) in enumerate(zip(prompts, lens)):
+            grid[b, :m], grid_lens[b] = p, m
+            grid_pages[b, :m] = pt[b, np.arange(m) // ps]
+        padded = [torch.from_numpy(a).to(dev) for a in (grid, grid_lens, grid_pages)]
+        shape = (cfg.n_layers, P, ps, cfg.kv_dim)
+        pools = {k: [torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+                     for _ in range(2)] for k in ("packed", "padded")}
+
+        def run_packed():
+            return paged.prefill_packed_paged(cfg, params, *packed, *pools["packed"],
+                                              SERVE_MAX_LEN, rope=rope)[0]
+
+        def run_padded():
+            return paged.prefill_paged(cfg, params, padded[0], padded[1],
+                                       *pools["padded"], padded[2], rope=rope)[0]
+
+        out = {}
+        for label, fn in (("packed", run_packed), ("padded", run_padded)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            logits = fn()[:len(lens)].float()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            times = []
+            for _ in range(PACKED_TIMES):
+                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                a.record()
+                fn()
+                b.record()
+                torch.cuda.synchronize()
+                times.append(a.elapsed_time(b))
+            out[label] = dict(logits=logits, ms=float(np.median(times)), peak=peak)
+        want = out["padded"]["logits"]
+        logit_err = float((out["packed"]["logits"] - want).abs().max()
+                          / want.abs().max())
+        written = torch.zeros((P, ps), dtype=torch.bool, device=dev)
+        for b, m in enumerate(lens):
+            pos = np.arange(m)
+            written[torch.from_numpy(pt[b, pos // ps]).long(),
+                    torch.from_numpy(pos % ps).long()] = True
+        pool_err = max(float((g[:, written].float() - w[:, written].float()).abs().max()
+                             / w[:, written].float().abs().max())
+                       for g, w in zip(pools["packed"], pools["padded"]))
+        same_first = bool(torch.equal(out["packed"]["logits"].argmax(-1),
+                                      want.argmax(-1)))
+        ok = logit_err <= PACKED_TOL and pool_err <= PACKED_TOL and same_first
+        row = dict(phase="packed_prefill", model="qwen2.5-7b", quant="int8",
+                   group_size=256, dtype="bf16", mix=name, prompt_lens=lens,
+                   tokens=N, packed_tokens=n, padded_grid=[R, T],
+                   packed_route="gemm" if n < 256 else "dequantize + matmul",
+                   logits_max_rel_err=logit_err, pool_max_rel_err=pool_err,
+                   limit=PACKED_TOL, first_tokens_equal=same_first,
+                   packed_ms=out["packed"]["ms"], padded_ms=out["padded"]["ms"],
+                   speedup=out["padded"]["ms"] / out["packed"]["ms"],
+                   packed_peak_bytes=out["packed"]["peak"],
+                   padded_peak_bytes=out["padded"]["peak"], ok=ok, card=CARD)
+        emit(row)
+        rows.append(row)
+        del pools, out
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"packed prefill {name} differs from the padded one")
+    del params
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_recapture(dev):
@@ -3390,12 +3527,17 @@ def par_rank_fields(outs, prefix=""):
 
 def par_single_engine(cfg, params, seqpar, dev):
     """The single-device PagedEngine (graph route) on the same (fused)
-    weights."""
+    weights, admitting through the padded [slots, bucket] prefill that the
+    mesh path takes (Engine._admit_now) instead of its own packed one, so
+    that the rows compare like with like (row (c) bit for bit)."""
+    import types
+
     import torch
 
-    from kuiperllama_tpu_torch.serving.engine import PagedEngine
+    from kuiperllama_tpu_torch.serving.engine import Engine, PagedEngine
 
     eng = PagedEngine(cfg, params, cache_dtype=torch.bfloat16, **par_engine_kw(seqpar))
+    eng._admit_now = types.MethodType(Engine._admit_now, eng)
     out = par_run_engine(eng, cfg.vocab_size, PAR_SEQPAR_PROMPT if seqpar else 0, dev)
     out.update(graphs=graph_stats(eng.graph_cache), free_pages=eng._pool_pages)
     return out, eng
@@ -4280,6 +4422,7 @@ def main() -> int:
         dev, "llama2-7b", "llama2-7b", profile_eager=True)
     launches["engine tinyllama-1.1b"], _, _ = phase_engine_main_path(
         dev, "tinyllama-1.1b", "tinyllama-1.1b", prefill_chunk=256, long_prompt=768)
+    phase_packed_prefill(dev)
     phase_server(dev, fixture_cfg, fixture_params, fixture_tokens)
     phase_native(dev)
     launches["ppl"] = phase_ppl(dev)

@@ -3,6 +3,9 @@ kuiperllama_tpu/models/paged.py (single device).
 
   * prefill_paged: a batch of prompts from position 0, causal attention over
     each prompt's own K/V, which is then written into its pages;
+  * prefill_packed_paged: the same prompts packed into one ragged token
+    stream, padded only to the stream's own length (the single-device
+    engine's admission prefill);
   * prefill_chunk_paged: one C-token chunk of a chunked prefill, attending
     to the row's earlier context gathered from its pages and, causally, to
     the chunk itself;
@@ -39,7 +42,8 @@ import torch
 
 from ..config import ModelConfig
 from ..kvcache import sink_pages
-from ..ops.attention import attention_dense, attention_dense_parts
+from ..ops.attention import (attention_dense, attention_dense_parts,
+                             attention_packed, packed_tiles)
 from ..ops.kernels.paged_attention import merge_flash_many, paged_attention_flat
 from ..ops.linear import linear
 from ..ops.rmsnorm import rmsnorm
@@ -152,6 +156,71 @@ def prefill_paged(cfg: ModelConfig, params, tokens, prompt_lens, k_pages,
     last = (prompt_lens.long() - 1).clamp(0, T - 1)
     x_last = x[torch.arange(B, device=dev), last]
     return _final_logits(cfg, params, x_last, mode, group), k_pages, v_pages
+
+
+def pack_prompts(prompts, page_rows, n: int, rows: int, page_size: int):
+    """The host-side inputs of prefill_packed_paged for `prompts` (lists of
+    ids, in admit order) whose tokens go to the pages of `page_rows` (a
+    page-table row each): int32 (tokens [1, n], positions [n], segments
+    [n], token_pages [n], last_idx [rows]), the stream padded to n tokens
+    (segment -1, the 2**30 page sentinel) and last_idx to `rows` entries."""
+    tokens = np.zeros((1, n), np.int32)
+    positions = np.zeros((n,), np.int32)
+    segments = np.full((n,), -1, np.int32)
+    pages = np.full((n,), 2 ** 30, np.int32)
+    last = np.zeros((rows,), np.int32)
+    o = 0
+    for i, (ids, row) in enumerate(zip(prompts, page_rows)):
+        m = len(ids)
+        pos = np.arange(m)
+        tokens[0, o:o + m] = ids
+        positions[o:o + m] = pos
+        segments[o:o + m] = i
+        pages[o:o + m] = np.asarray(row)[pos // page_size]
+        last[i] = o + m - 1
+        o += m
+    return tokens, positions, segments, pages, last
+
+
+@torch.no_grad()
+def prefill_packed_paged(cfg: ModelConfig, params, tokens, positions, segments,
+                         token_pages, last_idx, k_pages, v_pages, max_len: int, *,
+                         rope=None, mode: str = "fast"):
+    """Prefill of admitted prompts packed into ONE token stream: the real
+    tokens of every prompt, back to back, and padding only up to the
+    stream's length N.
+
+    tokens [1, N]; positions [N] each token's position inside its own
+    prompt; segments [N] its prompt's admit row (-1 for padding);
+    token_pages [N] its physical page (2**30 for padding: those writes go to
+    the garbage page 0); last_idx [R] the stream index of each admit row's
+    last token (any index for rows past the admitted ones). Every prompt is
+    shorter than `max_len`, which bounds the keys a query tile of the
+    attention reads (ops/attention.py `packed_tiles`).
+
+    Embedding, projections, rope, norms and the MLP are row-wise and run on
+    [1, N] as on [B, T]; the INT8 projections take the route of N rows. Each
+    token's K/V go to (page, position % ps); unlike prefill_paged, nothing
+    past a prompt's end is written. The lm_head runs on the R gathered
+    last tokens. Returns (last_logits [R, vocab] fp32, k_pages, v_pages)."""
+    _, N = tokens.shape
+    hd = cfg.head_dim
+    dev = tokens.device
+    x = params["tok_emb"][tokens.long()]
+    sin, cos = rope if rope is not None else build_rope(cfg, dev)
+    s, c = gather_rope(sin, cos, positions[None])
+    pages = sink_pages(token_pages.long(), k_pages.shape[1])
+    offs = positions.long() % k_pages.shape[2]
+    tiles = packed_tiles(positions, segments, max_len)
+    blocks = params["blocks"]
+    for li in range(cfg.n_layers):
+        q, k, v, H, KH = _qkv(cfg, blocks, li, x, s, c, 1, N, mode)
+        k_pages[li, pages, offs] = k.reshape(N, KH * hd).to(k_pages.dtype)
+        v_pages[li, pages, offs] = v.reshape(N, KH * hd).to(v_pages.dtype)
+        attn = attention_packed(q[0], k[0], v[0], tiles)
+        x = _mlp_residual(cfg, blocks, li, x, attn[None], 1, N, H, hd, mode)
+    x_last = x[0, last_idx.long()]
+    return _final_logits(cfg, params, x_last, mode), k_pages, v_pages
 
 
 @torch.no_grad()

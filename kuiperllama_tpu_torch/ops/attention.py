@@ -2,7 +2,9 @@
 
 One call handles [B, T] query tokens against the cache with causal and
 length masking, covering prefill (T = prompt length) and decode (T = 1).
-The JAX package leaves this to XLA, so the port keeps it as torch ops.
+`attention_packed` is the same arithmetic over one packed stream of
+several prompts (models/paged.py `prefill_packed_paged`). The JAX package
+leaves this to XLA, so the port keeps it as torch ops.
 """
 
 import math
@@ -104,3 +106,52 @@ def attention_dense_parts(q, k_cache, v_cache, q_positions, kv_len_mask=None):
     l = p.sum(dim=-1)
     acc = torch.einsum("btkms,bskh->btkmh", p, v_cache.float())
     return acc.reshape(B, T, H, hd), m.reshape(B, T, H), l.reshape(B, T, H)
+
+
+def packed_tiles(positions, segments, max_len: int, q_tile=_Q_BLOCK):
+    """The query tiles of a packed stream for `attention_packed`: a list of
+    (t0, t1, k0, mask), where tile [t0, t1) of the N queries sees the keys
+    [k0, t1) and mask [t1 - t0, t1 - k0] bool says which of them it
+    attends to: a key of the same segment at a position <= the query's.
+
+    positions, segments [N] int: each token's position inside its own
+    prompt and its prompt's index (-1 for padding), prompts contiguous and
+    in order. Every prompt is shorter than `max_len`, so a tile needs at
+    most the max_len keys before it: k0 = max(0, t0 - max_len); a stream
+    of at most max_len tokens is seen whole up to each tile's end. The
+    shapes depend on N, max_len and q_tile alone, so a CUDA graph of one N
+    serves every mix of prompts."""
+    N = positions.shape[0]
+    pos, seg = positions.long(), segments.long()
+    tiles = []
+    for t0 in range(0, N, q_tile):
+        t1 = min(t0 + q_tile, N)
+        k0 = max(0, t0 - max_len)
+        mask = ((seg[k0:t1][None] == seg[t0:t1, None])
+                & (pos[k0:t1][None] <= pos[t0:t1, None]))
+        tiles.append((t0, t1, k0, mask))
+    return tiles
+
+
+def attention_packed(q, k, v, tiles):
+    """Causal attention inside each prompt of a packed stream, tile by
+    query tile (`packed_tiles`), with `_attention_full`'s fp32 arithmetic
+    and NEG_INF: a key a query does not see contributes exactly 0, so each
+    prompt's rows equal its own dense attention up to summation order.
+
+    q [N, H, hd]; k, v [N, KH, hd]. Returns [N, H, hd] in q.dtype."""
+    N, H, hd = q.shape
+    KH = k.shape[1]
+    kv_mul = H // KH
+    kf, vf = k.float(), v.float()
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for t0, t1, k0, mask in tiles:
+        qf = q[t0:t1].reshape(t1 - t0, KH, kv_mul, hd).float()
+        scores = torch.einsum("tkmh,skh->tkms", qf, kf[k0:t1]) * scale
+        scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+        scores = scores - scores.amax(dim=-1, keepdim=True)
+        probs = torch.exp(scores)
+        probs = probs / probs.sum(dim=-1, keepdim=True)
+        outs.append(torch.einsum("tkms,skh->tkmh", probs, vf[k0:t1]))
+    return torch.cat(outs).reshape(N, H, hd).to(q.dtype)

@@ -5,7 +5,9 @@ The engine keeps a slot-per-request batch over a persistent KV cache:
 requests are admitted into free slots, all active slots decode together in
 chunks, and finished rows retire and free their slot for the next queued
 request. Every request admitted at a step boundary prefills in ONE batched
-forward.
+forward: on the PagedEngine on one device, the admitted prompts' real
+tokens packed into one stream padded only to its own bucket; elsewhere a
+[max_batch, bucket] grid.
 
 Two cache backends:
   Engine      dense cache [L, max_batch, max_len, KH, hd];
@@ -33,18 +35,20 @@ flags into the engine's fixed `prefill_logits`, `prefill_first` and
 `prefill_done`, in admit order; the keys are the JAX package's jit keys:
 ("admit", max_batch, T, S, cache dtype) for the dense admit,
 ("prefill_paged", max_batch, T, mesh) and ("prefill_chunk", max_batch, C,
-n_hist, mesh) for the paged ones, where the chunk's start is an input.
+n_hist, mesh) for the paged ones, where the chunk's start is an input;
+and ("prefill_packed", N, max_batch) for the packed stream of N tokens,
+which no row count enters.
 
 Spans (utils/profiling.py), recorded only while a torch profiler records:
 `kt.engine.step` around each step, and inside it, in order,
 `kt.engine.admit` (the requests admitted, each one's wait since
 `submit()`, the queued ones left and why: `no_slot` or `no_pages`),
 `kt.engine.prefill` (its graph key, rows real and padded, T, prompt tokens
-and computed ones, `replay`, `capture` or `eager`; a chunked wave gives one
-a chunk), `kt.engine.sync` (the host blocked in a fetch: after the
-prefill, after the chunk), `kt.engine.chunk` (steps, rows, and for the
-PagedEngine the pool's pages by use) and `kt.engine.collect` (the requests
-retired).
+and computed ones, `replay`, `capture` or `eager`; a packed stream is one
+row of T = N tokens and says `packed`; a chunked wave gives one a chunk),
+`kt.engine.sync` (the host blocked in a fetch: after the prefill, after
+the chunk), `kt.engine.chunk` (steps, rows, and for the PagedEngine the
+pool's pages by use) and `kt.engine.collect` (the requests retired).
 """
 
 from __future__ import annotations
@@ -174,7 +178,8 @@ class Engine:
         self.n_preemptions = 0
         # prefill accounting: wall time of the single-shot batched admit
         # prefills (with the first-token fetch), real prompt tokens and the
-        # padded [Bpad, T] grid the forward computes
+        # tokens the forward computes (the padded [Bpad, T] grid, or the
+        # packed stream's N)
         self.prefill_wall_s = 0.0
         self.prefill_tokens = 0
         self.prefill_padded_tokens = 0
@@ -461,11 +466,19 @@ class Engine:
         T = min(_bucket(max(len(self._effective_ids(r)) for _, r in admits)),
                 self.max_len)
         toks, lens, slots = self._admit_rows(admits, T)
-        tokens, computed = int(lens[:len(admits)].sum()), self.max_batch * T
+        self._prefill_admits(admits, slots, lens, dict(rows=self.max_batch, T=T),
+                             lambda sp: self._prefill_batch(slots, toks, lens, sp))
+
+    def _prefill_admits(self, admits, slots, lens, grid, prefill):
+        """The admission's one prefill, `prefill(span)` over rows x T tokens
+        (`grid`), under its `kt.engine.prefill` span, with its accounting,
+        then the activation of its rows. slots, lens: admit order."""
+        tokens = int(lens[:len(admits)].sum())
+        computed = grid["rows"] * grid["T"]
         t0 = time.perf_counter()
-        with span("kt.engine.prefill", rows_real=len(admits), rows=self.max_batch,
-                  T=T, tokens=tokens, computed=computed) as sp:
-            first, done = self._prefill_batch(slots, toks, lens, sp)
+        with span("kt.engine.prefill", rows_real=len(admits), tokens=tokens,
+                  computed=computed, **grid) as sp:
+            first, done = prefill(sp)
             self.n_prefill_calls += 1
         self._activate(admits, slots, lens, first, done)  # syncs
         self.prefill_wall_s += time.perf_counter() - t0
@@ -810,6 +823,40 @@ class PagedEngine(Engine):
         if self.reserve_growth:
             remaining = max(req.max_new_tokens - len(req.out_ids), 0)
             self._reserved_caps[slot] = min(eff + remaining + 1, self.max_len)
+
+    def _admit_now(self, admits):
+        """On one device, the admitted prompts prefill as ONE packed stream
+        of their N tokens, padded only to N's bucket (`_prefill_packed`);
+        with a mesh, as the [max_batch, bucket] grid of Engine._admit_now."""
+        if self._sharded is not None:
+            return super()._admit_now(admits)
+        ids = [self._effective_ids(r) for _, r in admits]
+        lens = np.asarray([len(i) for i in ids], np.int32)
+        slots = np.asarray([s for s, _ in admits], np.int32)
+        # never more tokens than the [max_batch, max_len] grid it replaces
+        n = min(_bucket(int(lens.sum())), self.max_batch * self.max_len)
+        self._prefill_admits(admits, slots, lens, dict(rows=1, T=n, packed=True),
+                             lambda sp: self._prefill_packed(slots, ids, n, sp))
+
+    def _prefill_packed(self, slots: np.ndarray, ids, n: int, sp):
+        """One forward over the admitted prompts `ids` (admit order, into
+        `slots`) packed into a stream of `n` tokens, under the prefill span
+        `sp`. The graph key holds n and max_batch, never the rows admitted.
+        Returns (first tokens, done flags) in admit order."""
+        from ..models.paged import pack_prompts, prefill_packed_paged
+
+        parts = pack_prompts(ids, self.allocator.page_table[slots], n,
+                             self.max_batch, self.page_size)
+        key = ("prefill_packed", n, self.max_batch)
+        buf, (tok, pos, seg, tp, last) = self._prefill_inputs(key, parts)
+
+        def fn():
+            logits, _, _ = prefill_packed_paged(
+                self.cfg, self.params, tok, pos, seg, tp, last, self.k_pages,
+                self.v_pages, self.max_len, rope=self.rope)
+            self._emit_first(logits)
+
+        return self._run_prefill(key, fn, buf, sp)
 
     def _prefill_batch(self, slots: np.ndarray, toks: np.ndarray,
                        lens: np.ndarray, sp):

@@ -162,6 +162,8 @@ def test_cpu_engine_run(extra, capsys):
         # the chunk in flight)
         assert ("prefill_rows" in line) == (extra[0] != "--arrival-rate")
         return
-    # one single-shot admission of the three 32-token prompts: 8 padded rows
-    assert line["prefill_rows"] == 8 and line["prefill_padded_tokens"] == 8 * 32
+    # one single-shot admission of the three 32-token prompts: one packed
+    # stream of 96 tokens padded to its 128 bucket, the lm_head on 8 rows
+    assert line["prefill_rows"] == 8 and line["prefill_padded_tokens"] == 128
+    assert line["prefill_tokens"] == 3 * 32
     assert line["prefill_mfu_pct"] is None  # no probe on the CPU

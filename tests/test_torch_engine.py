@@ -91,17 +91,21 @@ def test_paged_engine_page_recycling_matches_jax(model):
 @pytest.mark.parametrize("cls", ["Engine", "PagedEngine"])
 def test_admission_is_batched(model, cls):
     """Every request admitted at a step boundary prefills in ONE forward,
-    and decode progresses before the next admission."""
+    and decode progresses before the next admission. The port's
+    PagedEngine takes the packed prefill, given the admitted slots alone;
+    the grids carry padding slots, which are not counted."""
     je, te = _engines(model, cls, max_batch=3)
     calls = {}
     for name, eng in (("jax", je), ("torch", te)):
-        orig, log = eng._prefill_batch, calls.setdefault(name, [])
+        hook = ("_prefill_packed" if name == "torch" and cls == "PagedEngine"
+                else "_prefill_batch")
+        orig, log = getattr(eng, hook), calls.setdefault(name, [])
 
         def spy(slots, *a, orig=orig, log=log, eng=eng):
             log.append(int((np.asarray(slots) < eng.max_batch).sum()))
             return orig(slots, *a)
 
-        eng._prefill_batch = spy
+        setattr(eng, hook, spy)
     jr = _run(je, jeng, PROMPTS, 6)
     tr = _run(te, teng, PROMPTS, 6)
     assert [r.out_ids for r in tr] == [r.out_ids for r in jr]
@@ -204,3 +208,67 @@ def test_oversized_request_fails_loudly(model):
     with pytest.raises(RuntimeError, match="KV pages"):
         te.run([])
 
+
+
+def test_packed_admissions_of_one_bucket_replay_one_graph(model, monkeypatch):
+    """A 1-row admission (20 tokens) and a 3-row one (7 + 8 + 9 tokens)
+    pack into streams of the same 32-token bucket: the second replays the
+    first's prefill graph (CPU stand-in graphs), and the served tokens equal
+    JAX's engine, which pads each admission to [max_batch, bucket]."""
+    from kuiperllama_tpu_torch.serving import graphs
+
+    from test_torch_graphs import CpuGraph
+
+    monkeypatch.setattr(graphs, "STEP_GRAPH", CpuGraph)
+    je, te = _engines(model, "PagedEngine", max_batch=4, page_size=8)
+    te.graph_cache = graphs.GraphCache(torch.device("cpu"), te.generator)
+    prompts = [list(range(1, 21)), [3] * 7, list(range(30, 38)), [9, 8] * 4 + [1]]
+    outs = []
+    for eng, mod in ((je, jeng), (te, teng)):
+        reqs = [mod.Request(prompt_ids=p, max_new_tokens=6) for p in prompts]
+        eng.submit(reqs[0])
+        eng.step()
+        for r in reqs[1:]:
+            eng.submit(r)
+        eng.run([])
+        outs.append([r.out_ids for r in reqs])
+    assert outs[1] == outs[0] and all(len(o) == 6 for o in outs[1])
+    st = te.graph_cache.stats()
+    assert (st["n_prefill_captures"], st["n_prefill_replays"],
+            st["prefill_graphs"]) == (1, 1, 1)
+    assert list(te._prefill_in) == [("prefill_packed", 32, 4)]
+    assert te.prefill_padded_tokens == 2 * 32 and te.prefill_tokens == 44
+
+
+def test_mesh_path_keeps_the_padded_prefill(model, monkeypatch):
+    """With a mesh (a stand-in step here, calling prefill_paged as
+    ShardedPagedStep does) the admission is still one [max_batch, bucket]
+    prefill_paged; without one, prefill_packed_paged and never
+    prefill_paged."""
+    from kuiperllama_tpu_torch.models import paged
+
+    calls = []
+    for name in ("prefill_paged", "prefill_packed_paged"):
+        real = getattr(paged, name)
+
+        def rec(*a, _real=real, _name=name, **k):
+            calls.append((_name, tuple(a[2].shape)))
+            return _real(*a, **k)
+
+        monkeypatch.setattr(paged, name, rec)
+
+    class Step:
+        key = "mesh"
+
+        @staticmethod
+        def prefill(*a, **k):
+            return paged.prefill_paged(*a, **k)
+
+    for sharded in (False, True):
+        _, te = _engines(model, "PagedEngine", max_batch=3, page_size=8)
+        if sharded:
+            te._sharded = Step()
+        for p in PROMPTS[:2]:
+            te.submit(teng.Request(prompt_ids=p, max_new_tokens=4))
+        te._admit()
+    assert calls == [("prefill_packed_paged", (1, 16)), ("prefill_paged", (3, 16))]

@@ -181,3 +181,107 @@ def test_decode_into_max_len_matches_jax(model, prefilled):
     np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
     _close(tk[:, 1:], np.asarray(jk)[:, 1:], POOL_TOL)
     _close(tv[:, 1:], np.asarray(jv)[:, 1:], POOL_TOL)
+
+
+# prefill_packed_paged: prompt-length mixes, at most ROWS prompts a stream
+ROWS = 4
+PACKED_MIXES = {
+    "one_token": [1],
+    "15_16_17": [15, 16, 17],
+    "page_edges": [8, 9, 16, 17],   # ends on a page boundary, and one past
+    "max_batch": [5, 3, 11, 2],
+    "max_len_minus_1": [MAX_LEN - 1],
+    "total_on_a_bucket": [20, 12],  # 32 tokens: no padding at all
+}
+
+
+@pytest.mark.parametrize("lens", PACKED_MIXES.values(), ids=PACKED_MIXES.keys())
+def test_prefill_packed_paged_matches_jax(model, lens):
+    """The prompts packed into one stream, padded to its bucket, against
+    JAX's prefill_paged of the same prompts as a [B, bucket] grid: every
+    row's last logits, every slot a prompt token writes, and no other slot
+    touched but the garbage page's (pad tokens write only there, and
+    nothing is written past a prompt's end)."""
+    from kuiperllama_tpu_torch.serving.generate import _bucket
+
+    jcfg, jp, cfg, tp = model
+    rng = np.random.default_rng(sum(lens))
+    kp, vp = _pools(cfg, rng)
+    B, N = len(lens), sum(lens)
+    n = _bucket(N)
+    prompts = [rng.integers(1, cfg.vocab_size, m).astype(np.int32) for m in lens]
+    # each prompt on its own shuffled pages
+    free = list(rng.permutation(np.arange(1, P)))
+    pt = np.zeros((B, MAX_LEN // PS), np.int32)
+    for b, m in enumerate(lens):
+        for j in range(-(-m // PS)):
+            pt[b, j] = free.pop()
+    T = _bucket(max(lens))
+    tokens = np.zeros((B, T), np.int32)
+    token_pages = np.full((B, T), SENT, np.int32)
+    for b, (p, m) in enumerate(zip(prompts, lens)):
+        tokens[b, :m] = p
+        token_pages[b, :m] = pt[b, np.arange(m) // PS]
+    offs = np.broadcast_to(np.arange(T, dtype=np.int32) % PS, (B, T)).copy()
+    jl, jk, jv = jpaged.prefill_paged(
+        jcfg, jp, jnp.asarray(tokens), jnp.asarray(np.asarray(lens, np.int32)),
+        jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(token_pages), jnp.asarray(offs))
+    parts = paged.pack_prompts(prompts, pt, n, ROWS, PS)
+    assert parts[0].shape == (1, n) and int((parts[2] >= 0).sum()) == N
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    tl, tk2, tv2 = paged.prefill_packed_paged(
+        cfg, tp, *(torch.from_numpy(a) for a in parts), tk, tv, MAX_LEN)
+    assert tk2 is tk and tl.shape == (ROWS, cfg.vocab_size)
+    _close(tl[:B], np.asarray(jl), LOGITS_TOL)
+    written = np.zeros((P, PS), bool)
+    for b, m in enumerate(lens):
+        pos = np.arange(m)
+        written[pt[b, pos // PS], pos % PS] = True
+    for got, want, start in ((tk, jk, kp), (tv, jv, vp)):
+        got = got.numpy()
+        _close(got[:, written], np.asarray(want)[:, written], POOL_TOL)
+        untouched = ~written
+        untouched[0] = False  # the garbage page
+        np.testing.assert_array_equal(got[:, untouched], start[:, untouched])
+
+
+def test_attention_packed_sees_only_its_prompt_and_the_past():
+    """attention_packed over a stream of four prompts and padding: each
+    prompt's rows equal its own dense causal attention (_attention_full);
+    tiles of 3 queries, which cut prompts in the middle, and a key span
+    bounded by max_len give the one-tile result (the padding rows, which
+    attend to padding, are nobody's); and a query's output is
+    bit for bit unchanged when every key it must not see (another prompt's,
+    a later position's) is replaced by noise."""
+    from kuiperllama_tpu_torch.ops.attention import (_attention_full,
+                                                     attention_packed, packed_tiles)
+
+    lens, H, KH, hd = [5, 1, 7, 3], 4, 2, 8
+    N = 20  # 16 tokens and 4 of padding
+    seg = np.full((N,), -1, np.int64)
+    pos = np.zeros((N,), np.int64)
+    o = 0
+    for i, m in enumerate(lens):
+        seg[o:o + m], pos[o:o + m] = i, np.arange(m)
+        o += m
+    seg_t, pos_t = torch.from_numpy(seg), torch.from_numpy(pos)
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((N, h, hd), generator=g) for h in (H, KH, KH))
+    one = attention_packed(q, k, v, packed_tiles(pos_t, seg_t, N, N))
+    o = 0
+    for m in lens:
+        want = _attention_full(q[None, o:o + m], k[None, o:o + m], v[None, o:o + m],
+                               torch.arange(m)[None])[0]
+        torch.testing.assert_close(one[o:o + m], want, rtol=1e-6, atol=1e-6)
+        o += m
+    for max_len in (N, 8):
+        tiled = attention_packed(q, k, v, packed_tiles(pos_t, seg_t, max_len, 3))
+        torch.testing.assert_close(tiled[:o], one[:o], rtol=1e-6, atol=1e-6)
+    tiles = packed_tiles(pos_t, seg_t, 8, 3)
+    assert [t[2] for t in tiles] == [0, 0, 0, 1, 4, 7, 10]
+    for i in range(o):
+        hidden = torch.from_numpy((seg != seg[i]) | (pos > pos[i]))[:, None, None]
+        k2 = torch.where(hidden, torch.randn(k.shape, generator=g), k)
+        v2 = torch.where(hidden, torch.randn(v.shape, generator=g), v)
+        got = attention_packed(q, k2, v2, tiles)
+        assert torch.equal(got[i], attention_packed(q, k, v, tiles)[i])

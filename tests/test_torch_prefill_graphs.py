@@ -1,8 +1,8 @@
 """The prefills as CUDA graphs (serving/graphs.py `run_once`), on the CPU.
 
 Each prefill route of the port (the Generator's prefill, the dense Engine's
-admit prefill, the PagedEngine's single-shot and chunked prefills) runs its
-prefills through `SyncFreeGraph`: the CPU stand-in of
+admit prefill, the PagedEngine's packed single-shot and chunked prefills)
+runs its prefills through `SyncFreeGraph`: the CPU stand-in of
 tests/test_torch_graphs.py, with every host-syncing call patched to raise
 while a step is captured or replayed.
   * On the INT8 tinychar fixtures the graph route gives the eager route's
@@ -11,9 +11,10 @@ while a step is captured or replayed.
     route's.
   * On the fp32 tinychar fixtures the graph route's last logits equal the
     JAX counterpart's (decoder.prefill; engine._admit_prefill and the
-    forward it runs; paged.prefill_paged; paged.prefill_chunk_paged) within
-    1e-5 of the largest, and its tokens exactly. The JAX side is fed the
-    inputs the port packed for each prefill.
+    forward it runs; paged.prefill_paged, on the prompts of each packed
+    stream; paged.prefill_chunk_paged) within 1e-5 of the largest, and its
+    tokens exactly. The JAX side is fed the inputs the port packed for each
+    prefill.
 Besides: decoder.forward's sync-free drop against JAX forward's scatter with
 mode="drop" on rows that mix kept and dropped positions, the chunked
 prefill at three chunk starts under one key, seeded sampled prefills, and
@@ -228,13 +229,20 @@ def _jax_events(route, jc, jp, events, cache):
     kp = jnp.zeros(cache[0].shape, jnp.float32)
     vp = jnp.zeros(cache[1].shape, jnp.float32)
     if route == "paged":
+        # the packed stream's prompts, back on JAX's [B, 16] grid
         for e in events:
-            toks, lens, token_pages = (jnp.asarray(a) for a in e["inputs"])
-            offs = jnp.broadcast_to(jnp.arange(toks.shape[1]) % PS, toks.shape)
-            logits, kp, vp = jpaged.prefill_paged(jc, jp, toks, lens, kp, vp,
-                                                  token_pages, offs.astype(jnp.int32))
+            toks, _, seg, pages, _ = e["inputs"]
             n = len(e["first"])
-            out.append((np.asarray(logits)[:n], np.asarray(logits)[:n].argmax(-1)))
+            rows = [np.flatnonzero(seg == b) for b in range(n)]
+            grid, lens = _pad([toks[0, r] for r in rows])
+            token_pages = np.full(grid.shape, 2 ** 30, np.int32)
+            for b, r in enumerate(rows):
+                token_pages[b, :len(r)] = pages[r]
+            offs = np.broadcast_to(np.arange(grid.shape[1]) % PS, grid.shape)
+            logits, kp, vp = jpaged.prefill_paged(
+                jc, jp, jnp.asarray(grid), jnp.asarray(lens), kp, vp,
+                jnp.asarray(token_pages), jnp.asarray(offs.astype(np.int32)))
+            out.append((np.asarray(logits), np.asarray(logits).argmax(-1)))
         return out, (kp, vp)
     last = None
     for toks, start, lens, cp, hp in events[0]["inputs"]:
@@ -287,9 +295,22 @@ def test_prefill_graph_route_equals_eager_and_jax(route, rel, family, strict):
         assert _rel(e["logits"], logits) <= REL
         np.testing.assert_array_equal(e["first"].numpy(), toks)
     sink = 0 if route == "admit" or route == "generator" else 1  # page 0 is the sink
+    written = np.zeros(cache[0].shape[1:3], bool)
+    written[sink:] = True
+    if route == "paged":
+        # the packed stream writes its prompts' tokens and nothing past a
+        # prompt's end, where JAX's grid writes its padding
+        written[:] = False
+        for e in events:
+            _, pos, seg, pages, _ = e["inputs"]
+            real = seg >= 0
+            written[pages[real], pos[real] % PS] = True
+        assert not written[0].any()
+        for t in cache:
+            assert not t[:, 1:][:, ~written[1:]].any()  # the pools start at 0
     for t, j in zip(cache, want_cache):
         t, j = t.numpy(), np.asarray(j)
-        assert _rel(t[:, sink:], j[:, sink:]) <= REL
+        assert _rel(t[:, written], j[:, written]) <= REL
 
 
 @pytest.mark.parametrize("rel,family", FIXTURES[:1] + FIXTURES[2:])

@@ -171,10 +171,16 @@ def test_engine_step_gives_the_span_tree(model, cls):
     assert len(admit.attrs["waits"]) == 2 and min(admit.attrs["waits"]) >= 0
     T = prefill.attrs["T"]
     assert prefill.attrs["tokens"] == sum(len(p) for p in PROMPTS[:2])
-    assert prefill.attrs["computed"] == eng.max_batch * T == 2 * 16
-    assert prefill.attrs["rows_real"] == 2 and prefill.attrs["rows"] == 2
-    assert prefill.attrs["graph"] == "eager" and prefill.attrs["key"][0] in (
-        "admit", "prefill_paged")
+    assert prefill.attrs["rows_real"] == 2 and prefill.attrs["graph"] == "eager"
+    if cls is PagedEngine:
+        # one packed stream of both prompts, padded to its own bucket
+        assert prefill.attrs["computed"] == T == 16 and prefill.attrs["rows"] == 1
+        assert prefill.attrs["packed"] is True
+        assert prefill.attrs["key"] == ("prefill_packed", 16, eng.max_batch)
+    else:
+        assert prefill.attrs["computed"] == eng.max_batch * T == 2 * 16
+        assert prefill.attrs["rows"] == 2 and "packed" not in prefill.attrs
+        assert prefill.attrs["key"][0] == "admit"
     assert chunk.attrs["steps"] == 4 and chunk.attrs["rows"] == 2
     assert set(chunk.ids) == {r.request_id for r in reqs}
     assert collect.attrs["retired"] == []
