@@ -14,7 +14,7 @@ the K/V cache rows read or written (bf16).
 
 from __future__ import annotations
 
-from benchmark.harness.weights import matrices, shapes
+from benchmark.layouts.qwen2 import matrices, shapes
 
 ACT_BYTES = 2  # bf16 activations, embedding and KV cache
 

@@ -5,7 +5,9 @@ arrival times, whether or not earlier ones are done) or a closed loop
 answered).
 
 Traffic keys: "engine": {"slots", "page_size", "max_len", "chunk",
-"prefill_chunk"}; "drain_s"; "lead_in_s" (default 0). The harness calls
+"prefill_chunk"}; "drain_s"; "lead_in_s" (default 0); "warm_packed_tokens"
+(default 0), the longest stream of prompts admitted together that the
+warm-up prefills (below). The harness calls
 `step()` and submits between steps: a request due during a step is
 submitted after it, but its submit time is stamped with its due time, so
 its time to first token counts the wait. The engine stamps the first token
@@ -33,6 +35,20 @@ from benchmark.harness.record import Req, Run, Step
 from kuiperllama_tpu_torch.serving.engine import PagedEngine, Request
 
 
+def packed_plan(top: int, up_to: int, slots: int, longest: int) -> list:
+    """Prompt lengths of the warm-up calls that admit several prompts
+    together: one call for each bucket of the packed stream above `top`
+    (the largest that one prompt fills) up to `up_to`, largest first, of as
+    few prompts of at most `longest` tokens as fill the bucket exactly (at
+    most `slots` of them)."""
+    out, b = [], 2 * top
+    while b <= up_to and -(-b // longest) <= slots:
+        k = -(-b // longest)
+        out.append([b // k + (j < b % k) for j in range(k)])
+        b *= 2
+    return out[::-1]
+
+
 def warm_plan(pairs, max_len: int) -> list:
     """Schedule indices of the warm-up requests, one a prefill bucket that
     the pairs [(index, P, N)] use: the smallest bucket twice (its first
@@ -57,6 +73,7 @@ class System:
     clients: int
     open_loop: bool
     lead_in_s: float
+    warm_packed_tokens: int
 
 
 def build(cell, raw, device) -> System:
@@ -69,18 +86,39 @@ def build(cell, raw, device) -> System:
                       prefill_chunk=e.get("prefill_chunk", 0),
                       cache_dtype=torch.bfloat16)
     return System(eng, device, float(t["drain_s"]), int(t.get("clients", 0)),
-                  t["loop"] == "open", float(t.get("lead_in_s", 0)))
+                  t["loop"] == "open", float(t.get("lead_in_s", 0)),
+                  int(t.get("warm_packed_tokens", 0)))
 
 
 def graph_cache(system):
     return system.eng.graph_cache
 
 
+def _stream(schedule, n: int) -> list:
+    """n token ids: the schedule's prompts back to back."""
+    out, i = [], 0
+    while len(out) < n:
+        out += schedule.prompt(i)
+        i += 1
+    return out[:n]
+
+
 def warm(system, schedule, n_requests: int):
+    """One call a prefill bucket the traffic's prompts use, alone, and then
+    together: a packed stream of each bucket above those up to the
+    traffic's `warm_packed_tokens`, after the smallest bucket's two calls
+    and before the larger single buckets, largest first (warm_plan)."""
+    eng = system.eng
     pairs = [(i, *schedule.lengths(i)) for i in range(n_requests)]
-    for i in warm_plan(pairs, system.eng.max_len):
-        system.eng.run([Request(prompt_ids=list(schedule.prompt(i)),
-                                max_new_tokens=2)])
+    singles = [[list(schedule.prompt(i))] for i in warm_plan(pairs, eng.max_len)]
+    top = max(program.prompt_bucket(P, eng.max_len) for _, P, _ in pairs)
+    longest = min(max(P for _, P, _ in pairs), eng.max_len - 3)
+    packed = packed_plan(top, system.warm_packed_tokens, eng.max_batch, longest)
+    ids = _stream(schedule, sum(packed[0])) if packed else []
+    together = [[ids[sum(lens[:j]):sum(lens[:j + 1])] for j in range(len(lens))]
+                for lens in packed]
+    for prompts in singles[:2] + together + singles[2:]:
+        eng.run([Request(prompt_ids=p, max_new_tokens=2) for p in prompts])
     program.sync(system.device)
 
 

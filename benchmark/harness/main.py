@@ -93,7 +93,7 @@ class Setup:
             torch.cuda.init()
             torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        raw = weights.make(cell.config, seed, device)
+        raw = weights.make(cell.config, seed, device, cell.bench_dir)
         self.sync()
         t1 = time.perf_counter()
         self.system = self.entry.build(cell, raw, device)
@@ -127,7 +127,8 @@ class Setup:
         gc.collect()
         if self.cuda:
             torch.cuda.empty_cache()
-        return weights.make(self.cell.config, self.seed, self.device)
+        return weights.make(self.cell.config, self.seed, self.device,
+                            self.cell.bench_dir)
 
 
 def main(argv=None, t_start=None, device=None, root=spec.ROOT) -> int:

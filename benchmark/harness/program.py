@@ -1,50 +1,34 @@
 """The program under test, `kuiperllama_tpu_torch`, as the drivers take it:
-its model configuration and weights built from the benchmark's own, and
-the counters it keeps (kernel launches, graph captures)."""
+its model configuration and weights built from the benchmark's own, by the
+family's adapter (`adapters/<family>.py`, found by name beside the
+harness), and the counters and span records it keeps (kernel launches,
+graph captures, `kt.*` spans)."""
 
 from __future__ import annotations
 
 import torch
 
-from kuiperllama_tpu_torch.config import ModelConfig
-from kuiperllama_tpu_torch.fuse import fuse_params
-from kuiperllama_tpu_torch.quant import QuantTensor
+from benchmark.harness import spec
 from kuiperllama_tpu_torch.serving import graphs
 from kuiperllama_tpu_torch.serving.generate import _bucket, _bucket_len
+from kuiperllama_tpu_torch.utils import profiling
 
 
-def model_config(config: dict, seq_len: int) -> ModelConfig:
+def adapter(family: str):
+    """adapters/<family>.py."""
+    return spec.family_module("adapters", family)
+
+
+def model_config(config: dict, seq_len: int):
     """The port's ModelConfig of a benchmark configuration; `seq_len` is the
     cell's context (the rope table's length)."""
-    b = config["benchmark"]
-    return ModelConfig.from_header(
-        family=b["family"], dim=config["hidden_size"],
-        hidden_dim=config["intermediate_size"],
-        n_layers=config["num_hidden_layers"],
-        n_heads=config["num_attention_heads"],
-        n_kv_heads=config["num_key_value_heads"],
-        vocab_size=config["vocab_size"], seq_len=seq_len,
-        tied_embedding=bool(config["tie_word_embeddings"]),
-        group_size=b.get("group_size"), rope_theta=float(config["rope_theta"]),
-        norm_eps=float(config["rms_norm_eps"]))
-
-
-def _matrix(w):
-    if isinstance(w, dict):
-        return QuantTensor(q=w["q"], s=w["s"], group_size=w["g"])
-    return w
+    return adapter(config["benchmark"]["family"]).model_config(config, seq_len)
 
 
 def params(raw: dict) -> dict:
-    """The port's params from the benchmark's raw weights: INT8 matrices as
-    QuantTensors (bf16 scales), q|k|v and gate|up fused, a tied lm_head as
-    the embedding's transpose. Takes the raw tensors over: the caller drops
-    `raw`, so the unfused matrices are freed."""
-    blocks = {n: _matrix(w) for n, w in raw["layers"].items()}
-    lm = raw["lm_head"]
-    lm_head = raw["tok_emb"].t().contiguous() if lm is None else _matrix(lm)
-    return fuse_params(dict(tok_emb=raw["tok_emb"], blocks=blocks,
-                            final_norm=raw["final_norm"], lm_head=lm_head))
+    """The port's params from the benchmark's raw weights (harness/weights.py
+    `make`), which take the raw tensors over."""
+    return adapter(raw["family"]).params(raw)
 
 
 def prompt_bucket(n: int, limit: int) -> int:
@@ -61,6 +45,12 @@ def attention_window(n: int, limit: int) -> int:
 def counters() -> dict:
     """Every counted kernel's launches so far, by wrapper name."""
     return {w.__name__: w.launches for w in graphs.counted_kernels()}
+
+
+def span_records() -> list:
+    """The program's span records so far ([] where it keeps none)."""
+    get = getattr(profiling, "spans", None)
+    return [] if get is None else get()
 
 
 def graph_captures(cache) -> int:

@@ -18,10 +18,9 @@ PREFIX = "kt."
 
 def records(name: str) -> list:
     """The program's span records named `name` ([] where it keeps none)."""
-    from kuiperllama_tpu_torch.utils import profiling
+    from benchmark.harness import program
 
-    get = getattr(profiling, "spans", None)
-    return [] if get is None else [r for r in get() if r.name == name]
+    return [r for r in program.span_records() if r.name == name]
 
 
 def host(s) -> list:

@@ -8,10 +8,15 @@ traffic mix; each lives in a file of its own under the benchmark folder:
   limits/<cell>.json      the limits of the comparison that decides `correct`
   metrics/<metric>.py     one per-layer metric each (its reader)
   entries/<entry>.py      the driver of one entry point of the program
+  layouts/<family>.py     what one model family's weights are and how they
+                          are drawn from the seed
+  adapters/<family>.py    the program's model configuration and weights of
+                          one model family, built from the benchmark's own
   counts/<family>.py      the FLOP and byte arithmetic of one model family
   reference/<family>.py   the plain float32 reference of one model family
 
-A later cell, configuration or metric is a new file and a new entry in
+The family is the configuration's `benchmark.family`. A later cell,
+configuration, model family or metric is a new file and a new entry in
 `BENCHMARK.json`; no file here needs an edit for it.
 """
 
@@ -74,7 +79,7 @@ def load_module(path: str, name: str):
 
 
 def family_module(kind: str, family: str, bench_dir: str = BENCH_DIR):
-    """counts/<family>.py or reference/<family>.py."""
+    """<kind>/<family>.py: kind is layouts, adapters, counts or reference."""
     return load_module(os.path.join(bench_dir, kind, f"{family}.py"),
                        f"bench_{kind}_{family.replace('.', '_')}")
 

@@ -14,16 +14,20 @@ weights near 1. The same seed on the same device gives
 the same bytes, so the reference makes them again after the program is
 freed. Nothing here imports the program.
 
-The raw layout (stacked on a leading layer axis, [in, out] matrices):
-  tok_emb [V, d]; final_norm [d]; lm_head [d, V] or None when tied;
-  layers: attn_norm, ffn_norm [L, d]; wq, wk, wv, wo, w1, w3, w2; bq, bk,
-  bv. A matrix is a bf16 tensor or a dict {"q": int8, "s": bf16 [.., K/g,
-  N], "g": g}.
+What a model family draws, and in which order, is its layout:
+`layouts/<family>.py`, found by the configuration's `benchmark.family`,
+with `shapes(config)`, `draw(config, w)` given a `Draw`, and `tiny(config)`
+(a CPU-sized copy for the tests). The raw weights it returns carry the
+family under "family"; a matrix in them is a bf16 tensor or a dict {"q":
+int8, "s": bf16 [.., K/g, N], "g": g}, with any leading axes (layers,
+experts).
 """
 
 from __future__ import annotations
 
 import torch
+
+from benchmark.harness import spec
 
 GAIN = 1.5
 BIAS_STD = 0.1
@@ -33,75 +37,59 @@ INT8_STD = 127 / 3 ** 0.5
 _SEED_MOD = 2 ** 63
 
 
-def shapes(config: dict) -> dict:
-    """The sizes the weights need, from the configuration's published keys."""
-    d = config["hidden_size"]
-    H = config["num_attention_heads"]
-    KH = config["num_key_value_heads"]
-    hd = config.get("head_dim") or d // H
-    return dict(d=d, h=config["intermediate_size"], L=config["num_hidden_layers"],
-                H=H, KH=KH, hd=hd, kv=KH * hd, V=config["vocab_size"],
-                tied=bool(config["tie_word_embeddings"]),
-                bias=bool(config["benchmark"]["qkv_bias"]),
-                eps=float(config["rms_norm_eps"]),
-                theta=float(config["rope_theta"]))
+class Draw:
+    """The drawing handle a layout is given: one seeded generator on the
+    device, and the configuration's matrix form (INT8 with group scales, or
+    bf16)."""
 
+    def __init__(self, config: dict, seed: int, device):
+        self.device = device
+        self.quant = config["benchmark"]["weights"]
+        self.g = config["benchmark"].get("group_size")
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(int(seed) % _SEED_MOD)
 
-def matrices(s: dict) -> dict:
-    """(K, N) of each per-layer matrix, in drawing order."""
-    d, h, kv = s["d"], s["h"], s["kv"]
-    return {"wq": (d, d), "wk": (d, kv), "wv": (d, kv), "wo": (d, d),
-            "w1": (d, h), "w3": (d, h), "w2": (h, d)}
-
-
-def make(config: dict, seed: int, device) -> dict:
-    s = shapes(config)
-    quant = config["benchmark"]["weights"]
-    g = config["benchmark"].get("group_size")
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed) % _SEED_MOD)
-    L, d, V = s["L"], s["d"], s["V"]
-
-    def normal(shape, std, dtype):
-        return torch.randn(shape, generator=gen, device=device,
+    def normal(self, shape, std, dtype):
+        return torch.randn(shape, generator=self.gen, device=self.device,
                            dtype=torch.float32).mul_(std).to(dtype)
 
-    def matrix(shape):
+    def matrix(self, shape):
+        """A matrix [..., K, N] in the configuration's form, fan-in scaled."""
+        shape = tuple(shape)
         K, N = shape[-2], shape[-1]
         std = GAIN * K ** -0.5
-        if quant == "int8":
-            q = torch.randint(-127, 128, shape, generator=gen, device=device,
-                              dtype=torch.int8)
-            sc = torch.rand(shape[:-2] + (K // g, N), generator=gen, device=device,
-                            dtype=torch.float32)
+        if self.quant == "int8":
+            g = self.g
+            q = torch.randint(-127, 128, shape, generator=self.gen,
+                              device=self.device, dtype=torch.int8)
+            sc = torch.rand(shape[:-2] + (K // g, N), generator=self.gen,
+                            device=self.device, dtype=torch.float32)
             sc = sc.add_(0.5).mul_(std / INT8_STD).to(torch.bfloat16)
             return {"q": q, "s": sc, "g": g}
-        if quant == "bfloat16":
-            return normal(shape, std, torch.bfloat16)
-        raise ValueError(f"weights {quant!r}")
+        if self.quant == "bfloat16":
+            return self.normal(shape, std, torch.bfloat16)
+        raise ValueError(f"weights {self.quant!r}")
 
-    layers = {
-        "attn_norm": normal((L, d), NORM_STD, torch.float32).add_(1.0),
-        "ffn_norm": normal((L, d), NORM_STD, torch.float32).add_(1.0),
-    }
-    for name, (K, N) in matrices(s).items():
-        layers[name] = matrix((L, K, N))
-    if s["bias"]:
-        for name, n in (("bq", d), ("bk", s["kv"]), ("bv", s["kv"])):
-            layers[name] = normal((L, n), BIAS_STD, torch.bfloat16)
-    tok_emb = normal((V, d), GAIN * d ** -0.5, torch.bfloat16)
-    final_norm = normal((d,), NORM_STD, torch.float32).add_(1.0)
-    lm_head = None if s["tied"] else matrix((d, V))
-    return dict(tok_emb=tok_emb, final_norm=final_norm, lm_head=lm_head,
-                layers=layers)
+
+def layout(config: dict, bench_dir: str = spec.BENCH_DIR):
+    """layouts/<family>.py of the configuration's family."""
+    return spec.family_module("layouts", config["benchmark"]["family"], bench_dir)
+
+
+def make(config: dict, seed: int, device, bench_dir: str = spec.BENCH_DIR) -> dict:
+    raw = layout(config, bench_dir).draw(config, Draw(config, seed, device))
+    raw["family"] = config["benchmark"]["family"]
+    return raw
 
 
 def dequantize(w, layer=None) -> torch.Tensor:
-    """A raw matrix (or layer `layer` of a stacked one) in float32."""
+    """A raw matrix (or layer `layer` of a stacked one) in float32; an INT8
+    one [..., K, N] with scales [..., K/g, N] keeps its leading axes."""
     if isinstance(w, dict):
         q, sc, g = w["q"], w["s"], w["g"]
         if layer is not None:
             q, sc = q[layer], sc[layer]
-        K, N = q.shape[-2], q.shape[-1]
-        return (q.view(K // g, g, N).float() * sc.float()[:, None, :]).view(K, N)
+        *lead, K, N = q.shape
+        return (q.view(*lead, K // g, g, N).float()
+                * sc.float()[..., :, None, :]).view(*lead, K, N)
     return (w if layer is None else w[layer]).float()

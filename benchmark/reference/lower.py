@@ -19,16 +19,18 @@ FP8_MAX = 448.0
 
 
 def int4_groups(w: torch.Tensor, g: int) -> torch.Tensor:
-    """w [K, N] float32 rounded to symmetric int4 over groups of g rows."""
-    K, N = w.shape
-    wg = w.view(K // g, g, N)
-    step = wg.abs().amax(dim=1, keepdim=True).clamp(min=1e-30) / 7.0
-    return (torch.clamp(torch.round(wg / step), -7, 7) * step).view(K, N)
+    """w [..., K, N] float32 rounded to symmetric int4 over groups of g rows
+    (of each matrix of a stack)."""
+    *lead, K, N = w.shape
+    wg = w.reshape(*lead, K // g, g, N)
+    step = wg.abs().amax(dim=-2, keepdim=True).clamp(min=1e-30) / 7.0
+    return (torch.clamp(torch.round(wg / step), -7, 7) * step).view(*lead, K, N)
 
 
 def fp8_columns(w: torch.Tensor) -> torch.Tensor:
-    """w [K, N] float32 through fp8 e4m3 with one scale per column."""
-    scale = w.abs().amax(dim=0, keepdim=True).clamp(min=1e-30) / FP8_MAX
+    """w [..., K, N] float32 through fp8 e4m3 with one scale per column (of
+    each matrix of a stack)."""
+    scale = w.abs().amax(dim=-2, keepdim=True).clamp(min=1e-30) / FP8_MAX
     return (w / scale).to(torch.float8_e4m3fn).float() * scale
 
 

@@ -7,7 +7,7 @@ grouped-query causal softmax attention, the output projection and the
 residual, an RMSNorm, the SwiGLU MLP (silu(x W1) * (x W3)) W2 and the
 residual; a final RMSNorm and the lm_head (the embedding matrix when tied).
 Every matmul is float32 with TF32 off; the weights are the benchmark's raw
-tensors (harness/weights.py) widened to float32 layer by layer. It imports
+tensors (layouts/qwen2.py) widened to float32 layer by layer. It imports
 nothing of the program and takes nothing the program made: the caller makes
 the weights again from the seed.
 
@@ -22,7 +22,8 @@ from contextlib import contextmanager
 
 import torch
 
-from benchmark.harness.weights import dequantize, shapes
+from benchmark.harness.weights import dequantize
+from benchmark.layouts.qwen2 import shapes
 
 Q_BLOCK = 512
 

@@ -1,6 +1,6 @@
 """Fixtures of the benchmark's own tests: a copy of the benchmark in a
-temporary root with tiny qwen2 cells beside the real ones, so that a run
-goes end to end on the CPU in seconds."""
+temporary root with tiny cells beside the real ones, so that a run goes end
+to end on the CPU in seconds."""
 
 import json
 import os
@@ -14,13 +14,9 @@ BENCH = os.path.dirname(HERE)
 ROOT = os.path.dirname(BENCH)
 sys.path.insert(0, ROOT)
 
-TINY = dict(hidden_size=256, intermediate_size=1024, num_hidden_layers=2,
-            num_attention_heads=4, num_key_value_heads=2, vocab_size=4096)
-# tiny cell -> (configuration, traffic, the real cell whose metrics it reports)
-TINY_CELLS = {
-    "tiny-int8.serve": ("qwen2.5-7b-int8", "serve", "qwen2.5-7b-int8.serve"),
-    "tiny-bf16.chat-b1": ("qwen2.5-0.5b-bf16", "chat-b1", "qwen2.5-0.5b-bf16.chat-b1"),
-    "tiny-int8.chat-b1": ("qwen2.5-7b-int8", "chat-b1", "qwen2.5-7b-int8.chat-b1"),
+# tiny cells beyond one for each cell of BENCHMARK.json: tiny cell ->
+# (configuration, traffic, the real cell whose metrics it reports)
+EXTRA_TINY_CELLS = {
     # the closed-loop engine mix of the left-out document-QA cell: it keeps
     # every slot full, which the half-batch fault needs
     "tiny-int8.rag": ("qwen2.5-7b-int8", "rag", "qwen2.5-7b-int8.serve"),
@@ -41,22 +37,41 @@ def _dump(obj, path):
         json.dump(obj, f, indent=1)
 
 
-def make_tiny_root(dst: str) -> str:
-    shutil.copytree(BENCH, os.path.join(dst, "benchmark"),
+def tiny_names(configs) -> dict:
+    """{configuration: its tiny copy's name}: tiny-<the name's last part>
+    (tiny-int8), or tiny-<the whole name> where an earlier configuration
+    has that."""
+    out = {}
+    for c in configs:
+        short = "tiny-" + c["name"].rsplit("-", 1)[-1]
+        out[c["name"]] = "tiny-" + c["name"] if short in out.values() else short
+    return out
+
+
+def make_tiny_root(dst: str, src: str = ROOT) -> str:
+    """A copy of `src`'s benchmark in `dst` with a tiny copy of each of its
+    configurations, by its family's `tiny(config)` (layouts/<family>.py),
+    and a tiny cell beside each of its cells (and EXTRA_TINY_CELLS)."""
+    from benchmark.harness import spec
+
+    src_bench = os.path.join(src, "benchmark")
+    shutil.copytree(src_bench, os.path.join(dst, "benchmark"),
                     ignore=shutil.ignore_patterns("_cache", "__pycache__", "tests"))
-    bench = _load(os.path.join(ROOT, "BENCHMARK.json"))
-    for real in ("qwen2.5-7b-int8", "qwen2.5-0.5b-bf16"):
-        name = "tiny-" + real.rsplit("-", 1)[1]
-        cfg = _load(os.path.join(BENCH, "configs", f"{real}.json"))
-        cfg.update(TINY, name=name)
-        if "group_size" in cfg["benchmark"]:
-            cfg["benchmark"]["group_size"] = 32
+    bench = _load(os.path.join(src, "BENCHMARK.json"))
+    names = tiny_names(bench["configs"])
+    for real, name in names.items():
+        cfg = _load(os.path.join(src_bench, "configs", f"{real}.json"))
+        layout = spec.family_module("layouts", cfg["benchmark"]["family"], src_bench)
+        cfg = dict(layout.tiny(cfg), name=name)
         _dump(cfg, os.path.join(dst, "benchmark", "configs", f"{name}.json"))
         bench["configs"].append({"name": name, "source": cfg["source"],
                                  "file": f"benchmark/configs/{name}.json",
                                  "reduced": [], "why": "tiny, for tests"})
-    for cell, (real_cfg, traffic, real) in TINY_CELLS.items():
-        tr = _load(os.path.join(BENCH, "traffic", f"{traffic}.json"))
+    cells = {f"{names[w['config']]}.{w['traffic']}": (w["config"], w["traffic"], w["name"])
+             for w in bench["workloads"]}
+    cells.update({k: v for k, v in EXTRA_TINY_CELLS.items() if v[0] in names})
+    for cell, (real_cfg, traffic, real) in cells.items():
+        tr = _load(os.path.join(src_bench, "traffic", f"{traffic}.json"))
         tr["prompt"].update(median=24, min=4, max=100)
         tr["output"].update(median=40, min=16, max=80)
         if "engine" in tr:
@@ -71,7 +86,7 @@ def make_tiny_root(dst: str) -> str:
         tr["check"] = {"served_tokens": 200, "min_requests": 3, "max_requests": 6}
         tname = f"tiny-{traffic}"
         _dump(tr, os.path.join(dst, "benchmark", "traffic", f"{tname}.json"))
-        bench["workloads"].append({"name": cell, "config": cell.split(".")[0],
+        bench["workloads"].append({"name": cell, "config": names[real_cfg],
                                    "traffic": tname, "chips": 1, "why": "tiny"})
         _dump({"max_logit_gap": {"limit": TINY_GAP_LIMIT}, "short_answers": {"limit": 0},
                "unfinished": {"limit": 0}},

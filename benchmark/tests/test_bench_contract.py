@@ -81,11 +81,60 @@ def test_every_cell_reports_setup_another_end_to_end_and_a_per_layer_metric():
         assert cell.per_layer
 
 
+# keys that name a width, which a cut may never change
+WIDTH = re.compile(r"(_dim|_rank)$|hidden_size|intermediate_size|latent|state_size|proj"
+                   r"|head_size|expan|experts_per_tok")
+
+
+def _holds_what_is_run(entry: dict, cfg: dict):
+    """A configuration's file against its entry: the same name, source and
+    `reduced`; each key in `reduced` no width, with its published value
+    stated under `published` and run at another."""
+    assert cfg["name"] == entry["name"] and cfg["source"] == entry["source"]
+    assert cfg["reduced"] == entry["reduced"] and len(entry["reduced"]) <= 16
+    published = cfg.get("published", {})
+    for key in entry["reduced"]:
+        assert NAME.match(key) and not WIDTH.search(key), key
+        assert key in published and published[key] != cfg.get(key), key
+
+
 def test_config_files_hold_what_is_run():
     for c in BENCH["configs"]:
         with open(os.path.join(spec.ROOT, c["file"])) as f:
             cfg = json.load(f)
-        assert cfg["source"] == c["source"] and cfg["reduced"] == c["reduced"] == []
-        assert cfg["name"] == c["name"]
-        assert os.path.exists(os.path.join(spec.BENCH_DIR, "reference",
-                                           cfg["benchmark"]["family"] + ".py"))
+        _holds_what_is_run(c, cfg)
+        for kind in ("layouts", "adapters", "counts", "reference"):
+            assert os.path.exists(os.path.join(spec.BENCH_DIR, kind,
+                                               cfg["benchmark"]["family"] + ".py")), kind
+
+
+CUT = {"name": "m", "source": "s", "reduced": ["num_hidden_layers", "num_experts"],
+       "num_hidden_layers": 8, "num_experts": 8, "hidden_size": 2304,
+       "published": {"num_hidden_layers": 28, "num_experts": 64}}
+
+
+@pytest.mark.parametrize("case,holds", [
+    ("as published", True),
+    ("listed in one place only", False),
+    ("published value not stated", False),
+    ("run at the published value", False),
+    ("a width cut", False),
+])
+def test_a_cut_configuration_states_what_it_cut(case, holds):
+    cfg = json.loads(json.dumps(CUT))
+    entry = {k: cfg[k] for k in ("name", "source", "reduced")}
+    if case == "listed in one place only":
+        entry["reduced"] = ["num_hidden_layers"]
+    elif case == "published value not stated":
+        del cfg["published"]["num_experts"]
+    elif case == "run at the published value":
+        cfg["num_experts"] = 64
+    elif case == "a width cut":
+        for d in (cfg, entry):
+            d["reduced"] = d["reduced"] + ["hidden_size"]
+        cfg["published"]["hidden_size"], cfg["hidden_size"] = 2304, 1152
+    if holds:
+        _holds_what_is_run(entry, cfg)
+    else:
+        with pytest.raises(AssertionError):
+            _holds_what_is_run(entry, cfg)

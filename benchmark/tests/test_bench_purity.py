@@ -11,12 +11,22 @@ def test_benchmark_sources_import_nothing_forbidden():
 
 def test_reference_and_yardstick_import_nothing_of_the_program():
     port = {"kuiperllama_tpu_torch"}
-    for sub in ("reference", "counts"):
+    for sub in ("reference", "counts", "layouts"):
         assert purity.scan(os.path.join(spec.BENCH_DIR, sub), port) == {}
     for name in ("weights", "traffic", "stats", "check", "purity", "spec", "trace",
                  "record", "readers"):
         with open(os.path.join(spec.BENCH_DIR, "harness", f"{name}.py")) as f:
             assert not purity.imported_names(f.read()) & port, name
+
+
+def test_only_the_drivers_the_adapters_and_program_import_the_program():
+    found = purity.scan(spec.BENCH_DIR, {"kuiperllama_tpu_torch"})
+    allowed = [p for p in found if p.startswith(("entries" + os.sep, "adapters" + os.sep,
+                                                 "tests" + os.sep))
+               or p == os.path.join("harness", "program.py")]
+    assert sorted(found) == sorted(allowed)
+    assert os.path.join("harness", "program.py") in found
+    assert os.path.join("adapters", "qwen2.py") in found
 
 
 def test_names_are_compared_whole_by_their_top_level_part():

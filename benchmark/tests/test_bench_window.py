@@ -26,3 +26,33 @@ def test_the_window_opens_after_the_lead_in_on_a_loaded_engine(tiny_root):
     assert run.extra["completed"] >= sum(
         1 for r in run.reqs if r.finish is not None and r.finish <= run.window_s)
     assert all(r.first is not None and r.first >= r.due for r in run.reqs)
+
+
+def test_the_packed_warm_up_fills_each_bucket_above_one_prompts():
+    from benchmark.entries.engine import packed_plan
+
+    assert packed_plan(2048, 0, 32, 2048) == []
+    plan = packed_plan(2048, 32768, 32, 2045)
+    assert [sum(lens) for lens in plan] == [32768, 16384, 8192, 4096]
+    assert all(max(lens) <= 2045 and len(lens) == -(-sum(lens) // 2045) for lens in plan)
+    # a bucket that needs more prompts than slots is left out, with all above
+    assert [sum(lens) for lens in packed_plan(128, 1024, 4, 100)] == [256]
+
+
+def test_the_warm_up_admits_the_packed_streams_together(tiny_root, monkeypatch):
+    from kuiperllama_tpu_torch.serving.engine import PagedEngine
+
+    seen = []
+    prefill = PagedEngine._prefill_packed
+
+    def spy(self, slots, ids, n, sp):
+        seen.append((n, [len(i) for i in ids]))
+        return prefill(self, slots, ids, n, sp)
+
+    monkeypatch.setattr(PagedEngine, "_prefill_packed", spy)
+    cell = spec.load_cell("tiny-int8.serve", tiny_root)
+    cell.traffic = dict(cell.traffic, warm_packed_tokens=1024)
+    Setup(cell, 2 ** 31 + 5, 1.0, torch.device("cpu"), trace.Tracer(False, 1.0))
+    assert [n for n, lens in seen if len(lens) > 1] == [256]
+    assert [sum(lens) for n, lens in seen if n == 256] == [256]
+    assert max(n for n, lens in seen if len(lens) == 1) == 128
